@@ -1,0 +1,117 @@
+"""Batched environment API (counterpart: ilswiss_tpu/envs/base.py).
+
+The JAX package writes a per-env `reset`/`step` and vmaps it; here the
+batch dimension is written out, so `reset` and `step` take and return
+batched tensors `[B, ...]`.  Episode truncation is part of the state (the
+`t` counter), as in the JAX package.  Randomness comes in as tensors:
+`reset` takes its noise draws, which `sample_reset_noise` makes from a
+`torch.Generator` (or a test hands over the JAX package's draws).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from ilswiss_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class EnvState:
+    """Batched per-env dynamic state.
+
+    internal: env-specific physics state, a tuple of [B, ...] tensors.
+    obs: current observation [B, obs_size] (what the policy sees next).
+    t: int32 [B] step count within the current episode."""
+
+    internal: Tuple[torch.Tensor, ...]
+    obs: torch.Tensor
+    t: torch.Tensor
+
+
+@dataclass
+class StepOutput:
+    """One batched `env.step` before any autoreset.  `terminal` is a true
+    termination (no bootstrap), `truncation` a time-limit cut."""
+
+    state: EnvState
+    obs: torch.Tensor
+    reward: torch.Tensor
+    terminal: torch.Tensor
+    truncation: torch.Tensor
+
+    @property
+    def done(self) -> torch.Tensor:
+        return torch.logical_or(self.terminal, self.truncation)
+
+
+class Environment:
+    """Static env descriptor with batched reset/step.
+
+    Subclasses set observation_size, action_size, action_low/high and
+    max_episode_steps (0 = no limit), and implement
+    `sample_reset_noise(n, generator)`, `_reset(noise) -> (internal, obs)`
+    and `_step(internal, action) -> (internal, obs, reward, terminal)`."""
+
+    observation_size: int
+    action_size: int
+    discrete: bool = False
+    max_episode_steps: int = 1000
+    action_low: np.ndarray
+    action_high: np.ndarray
+
+    def __init__(self, device=None, **overrides):
+        # env_kwargs of a spec; unknown keys fail loudly
+        for k, v in overrides.items():
+            if not hasattr(type(self), k):
+                raise TypeError(
+                    f"{type(self).__name__} has no parameter '{k}'")
+            setattr(self, k, v)
+        self.device = resolve_device(device)
+
+    # --- subclass hooks -------------------------------------------------
+    def sample_reset_noise(self, n: int, generator: torch.Generator
+                           ) -> Tuple[torch.Tensor, ...]:
+        raise NotImplementedError
+
+    def _reset(self, noise: Tuple[torch.Tensor, ...]) -> Tuple[Any, Any]:
+        raise NotImplementedError
+
+    def _step(self, internal, action: torch.Tensor):
+        raise NotImplementedError
+
+    # --- public API -----------------------------------------------------
+    def reset(self, noise: Tuple[torch.Tensor, ...]) -> EnvState:
+        internal, obs = self._reset(noise)
+        t = torch.zeros(obs.shape[0], dtype=torch.int32, device=obs.device)
+        return EnvState(internal=internal, obs=obs, t=t)
+
+    def step(self, state: EnvState, action: torch.Tensor) -> StepOutput:
+        internal, obs, reward, terminal = self._step(state.internal, action)
+        t = state.t + 1
+        if self.max_episode_steps > 0:
+            truncation = torch.logical_and(t >= self.max_episode_steps,
+                                           torch.logical_not(terminal))
+        else:
+            truncation = torch.zeros_like(terminal)
+        return StepOutput(
+            state=EnvState(internal=internal, obs=obs, t=t),
+            obs=obs,
+            reward=reward.to(torch.float32),
+            terminal=terminal.to(torch.bool),
+            truncation=truncation,
+        )
+
+    def scale_action(self, normalized: torch.Tensor) -> torch.Tensor:
+        """Policy actions in [-1, 1] to the Box bounds: lerp, then clip."""
+        if self.discrete:
+            return normalized
+        low = torch.as_tensor(self.action_low, dtype=torch.float32,
+                              device=normalized.device)
+        high = torch.as_tensor(self.action_high, dtype=torch.float32,
+                               device=normalized.device)
+        action = low + (normalized + 1.0) * 0.5 * (high - low)
+        return torch.clamp(action, low, high)

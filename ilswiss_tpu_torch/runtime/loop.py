@@ -1,0 +1,176 @@
+"""Off-policy actor-learner loop (counterpart: ilswiss_tpu/runtime/loop.py).
+
+    iteration = act -> vec-env step -> replay store -> K gradient steps
+
+The JAX package scans this inside one jitted program; here it is a Python
+loop of eager PyTorch calls, with the metrics kept on the device until an
+epoch ends.  K = `grad_steps_per_iter` defaults to the number of envs
+(one gradient step per env step).
+
+Every random draw of an iteration comes from one `noise` object, held by
+the RunnerState as JAX holds its key.  `Noise` draws from a
+`torch.Generator` on the loop's device; a test can swap in an object with
+the same methods that replays the JAX package's draws.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from ilswiss_tpu_torch.data.replay import (
+    ReplayState, replay_add, replay_init, replay_sample,
+)
+from ilswiss_tpu_torch.envs.base import EnvState
+from ilswiss_tpu_torch.envs.vector import VectorEnv
+
+
+@dataclass(frozen=True)
+class OffPolicyConfig:
+    batch_size: int = 256
+    replay_capacity: int = 1_000_000
+    grad_steps_per_iter: int | None = None  # default: num_envs (ratio 1.0)
+    min_steps_before_training: int = 1000
+    # store terminal = 0 always (the reference `no_terminal` flag)
+    no_terminal: bool = False
+
+
+class Noise:
+    """Every draw the loop makes, from one generator on `device`."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _uniform(self, shape, low: float, high: float) -> torch.Tensor:
+        return torch.empty(shape, device=self.device).uniform_(
+            low, high, generator=self.generator)
+
+    def _normal(self, shape) -> torch.Tensor:
+        return torch.randn(shape, device=self.device,
+                           generator=self.generator)
+
+    def warmup_action(self, shape) -> torch.Tensor:
+        """Uniform [-1, 1] warmup actions."""
+        return self._uniform(shape, -1.0, 1.0)
+
+    def act(self, shape) -> torch.Tensor:
+        """N(0, 1) noise of the acting sample."""
+        return self._normal(shape)
+
+    def reset(self, env, n: int):
+        """Reset noise for `n` envs (used where an episode ends)."""
+        return env.sample_reset_noise(n, self.generator)
+
+    def replay(self, batch_size: int) -> torch.Tensor:
+        """Uniforms in [0, 1) that pick the replay rows of one batch."""
+        return self._uniform((batch_size,), 0.0, 1.0)
+
+    def train(self, shape) -> tuple[torch.Tensor, torch.Tensor]:
+        """(eps_next, eps_new): N(0, 1) noise of one gradient step."""
+        return self._normal(shape), self._normal(shape)
+
+
+@dataclass
+class RunnerState:
+    noise: Any
+    env_state: EnvState          # batched [num_envs]
+    replay: ReplayState
+    algo_state: Any
+    total_env_steps: int
+
+
+class OffPolicyLoop:
+    """Off-policy runtime for an algorithm with `init(seed)`,
+    `act(state, obs, eps)` and `train_step(state, batch, eps_next,
+    eps_new)` (SAC)."""
+
+    def __init__(self, vec_env: VectorEnv, algo, config: OffPolicyConfig):
+        self.vec_env = vec_env
+        self.algo = algo
+        self.config = config
+        self.device = vec_env.env.device
+        self.grad_steps_per_iter = (
+            config.grad_steps_per_iter
+            if config.grad_steps_per_iter is not None
+            else vec_env.num_envs)
+
+    def init(self, seed: int, noise=None) -> RunnerState:
+        """Fresh runner: algorithm state from `seed`, env reset and every
+        later draw from `noise` (default `Noise(seed + 1, device)`)."""
+        noise = Noise(seed + 1, self.device) if noise is None else noise
+        env = self.vec_env.env
+        replay = replay_init(self.config.replay_capacity,
+                             env.observation_size, env.action_size,
+                             write_batch=self.vec_env.num_envs,
+                             device=self.device)
+        return RunnerState(
+            noise=noise,
+            env_state=self.vec_env.reset(
+                noise.reset(env, self.vec_env.num_envs)),
+            replay=replay,
+            algo_state=self.algo.init(seed),
+            total_env_steps=0,
+        )
+
+    # ------------------------------------------------------------------
+    def _collect_iter(self, runner: RunnerState, random_actions: bool
+                      ) -> RunnerState:
+        noise, n = runner.noise, self.vec_env.num_envs
+        shape = (n, self.vec_env.env.action_size)
+        if random_actions:
+            action = noise.warmup_action(shape)
+        else:
+            action = self.algo.act(runner.algo_state, runner.env_state.obs,
+                                   noise.act(shape))
+        env_state, tr = self.vec_env.step(
+            runner.env_state, action, noise.reset(self.vec_env.env, n))
+        if self.config.no_terminal:
+            tr.terminal = torch.zeros_like(tr.terminal)
+        runner.replay = replay_add(runner.replay, tr)
+        runner.env_state = env_state
+        runner.total_env_steps += n
+        return runner
+
+    def _train_iter(self, runner: RunnerState
+                    ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
+        runner = self._collect_iter(runner, random_actions=False)
+        cfg = self.config
+        shape = (cfg.batch_size, self.vec_env.env.action_size)
+        sums: Dict[str, torch.Tensor] = {}
+        state = runner.algo_state
+        for _ in range(self.grad_steps_per_iter):
+            batch = replay_sample(runner.replay,
+                                  runner.noise.replay(cfg.batch_size))
+            eps_next, eps_new = runner.noise.train(shape)
+            state, metrics = self.algo.train_step(state, batch, eps_next,
+                                                  eps_new)
+            for k, v in metrics.items():
+                sums[k] = v if k not in sums else sums[k] + v
+        runner.algo_state = state
+        return runner, {k: v / self.grad_steps_per_iter
+                        for k, v in sums.items()}
+
+    # ------------------------------------------------------------------
+    def warmup(self, runner: RunnerState) -> RunnerState:
+        """max(1, min_steps_before_training // num_envs) iterations of
+        uniform random actions."""
+        iters = max(1, self.config.min_steps_before_training
+                    // self.vec_env.num_envs)
+        for _ in range(iters):
+            runner = self._collect_iter(runner, random_actions=True)
+        return runner
+
+    def train_epoch(self, runner: RunnerState, steps_per_epoch: int
+                    ) -> tuple[RunnerState, Dict[str, float]]:
+        """max(1, steps_per_epoch // num_envs) training iterations; returns
+        the per-epoch means of the metrics as floats."""
+        iters = max(1, steps_per_epoch // self.vec_env.num_envs)
+        sums: Dict[str, torch.Tensor] = {}
+        for _ in range(iters):
+            runner, metrics = self._train_iter(runner)
+            for k, v in metrics.items():
+                sums[k] = v if k not in sums else sums[k] + v
+        return runner, {k: float(v / iters) for k, v in sums.items()}

@@ -1,0 +1,191 @@
+"""Bridge between the JAX package's state and the port's (no JAX
+counterpart).
+
+It reads the JAX state as numpy arrays: any object with the JAX state's
+attribute names whose leaves are numpy arrays, for example
+`jax.tree.map(np.asarray, state)`.  It never imports JAX.  The layouts it
+maps:
+
+  * a flax Dense kernel is [in, out]; `nn.Linear.weight` is [out, in];
+  * the twin critics are stacked [2, in, out] on both sides (`TwinQ`);
+  * `optax.flatten` keeps each optimizer's Adam moments as ONE ravelled
+    vector in `ravel_pytree` order: dict keys sorted, so `bias` before
+    `kernel` and the policy layers `hidden_0, hidden_1, log_std, mean`;
+    a kernel is ravelled in its flax [in, out] layout.
+
+The `*_to_numpy` functions go the other way, into the JAX layouts, so a
+test compares like with like.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ilswiss_tpu_torch.algorithms.sac import SAC, Adam, SACState, TwinQ
+from ilswiss_tpu_torch.data.replay import ReplayState
+from ilswiss_tpu_torch.envs.base import EnvState
+from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
+
+# (port tensor, flax path, transposed) in ravel_pytree order
+_Leaf = Tuple[torch.Tensor, Tuple[str, ...], bool]
+
+
+def _policy_leaves(policy: TanhGaussianPolicy) -> List[_Leaf]:
+    names = [f"hidden_{i}" for i in range(policy.num_hidden)]
+    out = []
+    for name in sorted(names + ["mean", "log_std"]):
+        layer = getattr(policy, name)
+        out.append((layer.bias, ("params", name, "bias"), False))
+        out.append((layer.weight, ("params", name, "kernel"), True))
+    return out
+
+
+def _twinq_leaves(qf: TwinQ) -> List[_Leaf]:
+    out = []
+    for name in sorted(qf.names):
+        out.append((getattr(qf, f"{name}_bias"),
+                    ("params", "mlp", name, "bias"), False))
+        out.append((getattr(qf, f"{name}_kernel"),
+                    ("params", "mlp", name, "kernel"), False))
+    return out
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _to_flax(t: torch.Tensor, transposed: bool) -> np.ndarray:
+    x = t.detach().cpu().numpy()
+    return x.T if transposed else x
+
+
+def _from_flax(x, t: torch.Tensor, transposed: bool) -> torch.Tensor:
+    x = np.asarray(x)
+    x = x.T if transposed else x
+    return torch.as_tensor(np.array(x), dtype=t.dtype,
+                           device=t.device).reshape(t.shape)
+
+
+@torch.no_grad()
+def _load_leaves(leaves: List[_Leaf], params) -> None:
+    for t, path, tr in leaves:
+        t.copy_(_from_flax(_get(params, path), t, tr))
+
+
+def _dump_leaves(leaves: List[_Leaf]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for t, path, tr in leaves:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _to_flax(t, tr)
+    return out
+
+
+def _moments_of(opt: Adam, leaves: List[_Leaf], moments):
+    """`moments` (in the optimizer's parameter order) in leaf order."""
+    index = {id(p): i for i, p in enumerate(opt.params)}
+    return [moments[index[id(t)]] for t, _, _ in leaves]
+
+
+@torch.no_grad()
+def _load_adam(opt: Adam, leaves: List[_Leaf], adam_state) -> None:
+    """Unravel optax's flat mu/nu into the per-parameter moments."""
+    opt.count = int(np.asarray(adam_state.count))
+    for flat, moments in ((adam_state.mu, opt.mu), (adam_state.nu, opt.nu)):
+        flat = np.asarray(flat)
+        off = 0
+        for (t, _, tr), m in zip(leaves, _moments_of(opt, leaves, moments)):
+            n = t.numel()
+            shape = tuple(reversed(t.shape)) if tr else tuple(t.shape)
+            m.copy_(_from_flax(flat[off:off + n].reshape(shape), m, tr))
+            off += n
+        if off != flat.size:
+            raise ValueError(f"moment vector has {flat.size} entries, the "
+                             f"parameters {off}")
+
+
+def _dump_adam(opt: Adam, leaves: List[_Leaf]) -> Dict[str, Any]:
+    def ravel(moments):
+        return np.concatenate([
+            _to_flax(m, tr).reshape(-1)
+            for (_, _, tr), m in zip(leaves,
+                                     _moments_of(opt, leaves, moments))])
+    return {"count": opt.count, "mu": ravel(opt.mu), "nu": ravel(opt.nu)}
+
+
+def _alpha_leaves(state: SACState) -> List[_Leaf]:
+    return [(state.log_alpha, (), False)]
+
+
+def sac_state_from_jax(sac: SAC, jstate) -> SACState:
+    """A SACState on `sac`'s device holding the JAX SACState's values:
+    params, targets, log alpha, and each optimizer's moments and count."""
+    state = sac.init(0)
+    _load_leaves(_policy_leaves(state.policy), jstate.policy_params)
+    _load_leaves(_twinq_leaves(state.qf), jstate.qf_params)
+    _load_leaves(_twinq_leaves(state.target_qf), jstate.target_qf_params)
+    with torch.no_grad():
+        state.log_alpha.copy_(torch.as_tensor(np.array(jstate.log_alpha)))
+    _load_adam(state.policy_opt, _policy_leaves(state.policy),
+               jstate.policy_opt[0])
+    _load_adam(state.qf_opt, _twinq_leaves(state.qf), jstate.qf_opt[0])
+    _load_adam(state.alpha_opt, _alpha_leaves(state), jstate.alpha_opt[0])
+    return state
+
+
+def sac_state_to_numpy(state: SACState) -> Dict[str, Any]:
+    """The port's SACState in the JAX layouts: flax param dicts, and per
+    optimizer {"count", "mu", "nu"} with the moments ravelled as optax
+    keeps them."""
+    return {
+        "policy_params": _dump_leaves(_policy_leaves(state.policy)),
+        "qf_params": _dump_leaves(_twinq_leaves(state.qf)),
+        "target_qf_params": _dump_leaves(_twinq_leaves(state.target_qf)),
+        "log_alpha": state.log_alpha.detach().cpu().numpy(),
+        "policy_opt": _dump_adam(state.policy_opt,
+                                 _policy_leaves(state.policy)),
+        "qf_opt": _dump_adam(state.qf_opt, _twinq_leaves(state.qf)),
+        "alpha_opt": _dump_adam(state.alpha_opt, _alpha_leaves(state)),
+    }
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def env_state_from_jax(jstate, device) -> EnvState:
+    """A batched locomotion EnvState: internal (q, qd, warm-start forces),
+    obs and t; the JAX per-env keys have no counterpart and are dropped."""
+    return EnvState(
+        internal=tuple(_tensor(x, device, torch.float32)
+                       for x in jstate.internal),
+        obs=_tensor(jstate.obs, device, torch.float32),
+        t=_tensor(jstate.t, device, torch.int32),
+    )
+
+
+def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
+    return {"internal": tuple(x.cpu().numpy() for x in state.internal),
+            "obs": state.obs.cpu().numpy(), "t": state.t.cpu().numpy()}
+
+
+def replay_from_jax(jreplay, device) -> ReplayState:
+    return ReplayState(
+        data={k: _tensor(v, device) for k, v in jreplay.data.items()},
+        ep_id=_tensor(jreplay.ep_id, device, torch.int32),
+        ptr=int(np.asarray(jreplay.ptr)),
+        size=int(np.asarray(jreplay.size)),
+        env_ep=_tensor(jreplay.env_ep, device, torch.int32),
+    )
+
+
+def replay_to_numpy(state: ReplayState) -> Dict[str, Any]:
+    return {"data": {k: v.cpu().numpy() for k, v in state.data.items()},
+            "ep_id": state.ep_id.cpu().numpy(), "ptr": state.ptr,
+            "size": state.size, "env_ep": state.env_ep.cpu().numpy()}

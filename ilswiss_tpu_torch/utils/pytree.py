@@ -1,0 +1,30 @@
+"""Parameter helpers (counterpart: ilswiss_tpu/utils/pytree.py).
+
+JAX lerps immutable pytrees; here the target network's tensors are
+updated in place, which saves a copy of every parameter per step.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+from torch import nn
+
+
+@torch.no_grad()
+def soft_update(target: nn.Module, online: nn.Module, tau: float) -> None:
+    """Polyak update IN PLACE: target <- (1 - tau) * target + tau * online.
+
+    Runs under `no_grad` and writes into `target`'s parameter tensors;
+    the formula and its order match the JAX `soft_update` lerp."""
+    for t, o in zip(target.parameters(), online.parameters()):
+        t.mul_(1.0 - tau).add_(o * tau)
+
+
+def copy_params(module: nn.Module) -> nn.Module:
+    """A deep copy of `module` whose parameters take no gradient
+    (target-network init)."""
+    out = copy.deepcopy(module)
+    out.requires_grad_(False)
+    return out

@@ -27,6 +27,11 @@ def pytest_configure(config):
         "markers",
         "nightly: interpret-mode kernel validation, minutes per test"
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's kernels); skips "
+        "without one"
+    )
 
 
 # Smoke gate (VERDICT r3 #9): `pytest -m 'not slow and not nightly'` runs the fast
