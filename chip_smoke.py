@@ -7,9 +7,9 @@ from the root of a checkout.  It needs one CUDA device and `nvcc`, and
 exits non-zero on any failure; no phase catches its own error.
 
   1. probe: the card's name and power limit; TF32 off for matmuls and cuDNN;
-  2. build kernels K1 (csrc/planar_forward.cu) and K3 (csrc/fused_mlp.cu)
-     from the checkout's sources into build/kernels/, one nvcc each, in
-     parallel, printing `-Xptxas -v`;
+  2. build kernels K1 (csrc/planar_forward.cu), K2 (csrc/fused_sac.cu) and
+     K3 (csrc/fused_mlp.cu) from the checkout's sources into build/kernels/,
+     one nvcc each, in parallel, printing `-Xptxas -v`;
   3. K1 against its plain PyTorch version on the card: hopper, walker,
      halfcheetah (Euler, damped) and invertedpendulum (no contacts), at
      B = 128 and a ragged B = 100, one forward evaluation and one control
@@ -17,18 +17,32 @@ exits non-zero on any failure; no phase catches its own error.
   4. K3 against its plain version at B = 128, 11 -> 256 -> 256 -> 3 + 3,
      rtol = atol = 2e-5; times, and a three-addmm PyTorch chain as the
      yardstick;
+  4b. K2 against its plain version from the same seeded state and inputs:
+     hidden 32, B = 32, K = 3 and full width (11 / 3, 256 x 2, B = 512) at
+     K = 4, at the pins of tests/test_fused_sac.py (parameters and targets
+     rtol 2e-4, atol 2e-5; log alpha 1e-5, 1e-6; mu 2e-4, 2e-6; nu 2e-3,
+     1e-8; metrics 5e-4, 5e-5; counts equal); full width at K = 128: every
+     output finite and the drift printed, gated at K2_DRIFT (see there),
+     with the plain version in float64 as the yardstick;
+     times at K = 128 of the kernel, the plain version and 128 eager
+     `train_step` calls;
   5. the slice on a small input (4 envs, 32-wide nets): warmup and two
      training iterations on the card and on the CPU, from the same seed
-     and the same draws, agree at rtol 2e-4, atol 5e-3;
-  6. the main path: SAC-Hopper through `make_vec`, `SAC(use_fused_act=
-     True)` and `OffPolicyLoop` at 128 envs, batch 512, 256 x 2 nets, a 1M
-     ring and 128 gradient steps per iteration: warmup, then one epoch of
-     10 iterations.  Every launch counter is set to 0 just before and read
-     just after; each kernel must have launched exactly as often as the
-     path calls it, and every metric must be finite.
+     and the same draws, agree at rtol 2e-4, atol 5e-3; once with eager
+     gradient steps and once with the fused chain (K2 on the card, its
+     plain version on the CPU);
+  6. SAC-Hopper through `make_vec`, `SAC` and `OffPolicyLoop` at 128 envs,
+     batch 512, 256 x 2 nets, a 1M ring and 128 gradient steps per
+     iteration, twice: the eager path (`use_fused_act=True`) for warmup and
+     2 training iterations, then the main path (`use_fused_act=True,
+     use_fused_chain=True`) for warmup and one epoch of 10 iterations.
+     Before each, every launch counter is set to 0, and read just after;
+     each kernel must have launched exactly as often as the path calls it,
+     and every metric must be finite.
 
-It prints a JSON line with every kernel's numbers, the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}.
+It prints the roofline bound of K4 (not ported yet) from its shapes, a JSON
+line with every ported kernel's numbers, the card's name and power limit,
+and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -95,6 +109,66 @@ def k1_work(pm, B: int, iters: int, damped: bool) -> tuple[float, float]:
     return nbytes, per_env * B
 
 
+def k2_work(B: int, O: int, A: int, H: int, L: int, K: int
+            ) -> tuple[float, float]:
+    """(bytes, flops) of one K2 chain of K steps, counted from the products
+    of one step (two flops per multiply-add): the policy forward on obs and
+    on next_obs; three twin-critic forwards (targets, critics, updated
+    critics); the critics' weight and input gradients; the input gradient
+    of the updated critics down to the action columns; the policy's weight
+    and input gradients; and about 12 flops per parameter for Adam and
+    Polyak.  Bytes: the state (parameters, targets, moments, alpha) read
+    once and written once, the K streamed batches and noise read once, the
+    metrics written once."""
+    D = O + A
+    trunk = (L - 1) * H * H
+    policy_fwd = O * H + trunk + 2 * A * H
+    critic_fwd = D * H + trunk + H
+    macs = B * (2 * policy_fwd
+                + 3 * 2 * critic_fwd
+                + 2 * (critic_fwd + H + trunk)
+                + 2 * (H + trunk + A * H)
+                + policy_fwd + 2 * A * H + trunk)
+    n_policy = O * H + H + (L - 1) * (H * H + H) + 2 * (A * H + A)
+    n_critics = 2 * (D * H + H + (L - 1) * (H * H + H) + H + 1)
+    flops = K * (2 * macs + 12 * (n_policy + 2 * n_critics))
+    state = 3 * n_policy + 4 * n_critics + 3
+    nbytes = 4 * (2 * state + K * B * (2 * O + 3 * A + 2) + K * 8)
+    return nbytes, flops
+
+
+# K4 (ilswiss_tpu/ops/pgs_pallas.py, still to be ported): (nv, nrow) of the
+# models that reach it, as `ilswiss_tpu.envs.locomotion._model(name)` builds
+# them, and the sweeps of its env class
+K4_SHAPES = {"ant": (14, 116), "humanoid": (23, 150)}
+K4_SWEEPS = 15
+
+
+def k4_work(B: int, nv: int, nrow: int, iters: int) -> tuple[float, float]:
+    """(bytes, flops) of one K4 solve of B envs, from the u-form sweep of
+    pgs_pallas.py: J and W [nrow, nv] and five row vectors read, f written;
+    the warm start u = W f0, then per sweep and row a dot J_r . u, the
+    row update, and u += df W_r."""
+    nbytes = 4 * B * (2 * nrow * nv + 5 * nrow + nrow)
+    flops = B * (2 * nrow * nv + iters * nrow * (4 * nv + 6))
+    return nbytes, flops
+
+
+# Gate on K2 against its plain version after 128 steps at full width.  At
+# K = 4 the two agree at the pins.  Over 128 steps they drift apart by
+# rounding alone: Adam divides each gradient by its own running size, so a
+# last-bit difference in a small gradient becomes a difference of up to
+# lr in one step of one parameter, and ReLU and min() turn such differences
+# into different branches later.  A parameter can move at most K * lr =
+# 0.0384 in 128 steps; the gate allows two parameters to drift apart by a
+# quarter of that, and the per-step metrics by 2% + 0.02.  That it is
+# rounding is shown by a third run, the plain version in float64: the
+# kernel must not end farther from it than `f64_factor` times the float32
+# plain version does.
+K2_DRIFT = {"params": 0.25 * 128 * 3e-4, "metrics_rtol": 2e-2,
+            "metrics_atol": 2e-2, "f64_factor": 4.0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -130,9 +204,10 @@ def main() -> int:
         print(b.log.strip())
 
     from ilswiss_tpu_torch.envs.locomotion import _model
-    from ilswiss_tpu_torch.ops import fused_mlp
+    from ilswiss_tpu_torch.ops import fused_mlp, fused_sac
     from ilswiss_tpu_torch.ops import planar_dynamics as pd
     k1 = pd.planar_forward
+    k2 = fused_sac.fused_sac_chain
     k3 = fused_mlp.fused_gaussian_policy_forward
     gen = torch.Generator().manual_seed(0)
 
@@ -250,8 +325,118 @@ def main() -> int:
           f"three-addmm chain {k3_library_ms:.4f} ms; bound "
           f"{k3_bound[0]:.6f} ms ({k3_bound[1]})")
 
-    # ---- 5. the slice on a small input: card vs CPU -----------------------
+    # ---- 4b. K2 vs its plain version --------------------------------------
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+
+    def k2_case(n_obs, n_act, width, B, K):
+        """A trainer, two identical seeded states and one set of [K, B, ...]
+        inputs on the card."""
+        sac_ = SAC(n_obs, n_act, SACConfig(), net_size=width,
+                   num_hidden_layers=2)
+        g = torch.Generator().manual_seed(K * 1000 + B)
+        draw = lambda *shape: torch.randn(*shape, generator=g).to(dev)
+        batches = {"obs": draw(K, B, n_obs),
+                   "action": torch.tanh(draw(K, B, n_act)),
+                   "reward": draw(K, B),
+                   "terminal": (draw(K, B) > 1.0).float(),
+                   "next_obs": draw(K, B, n_obs)}
+        return (sac_, sac_.init(1), sac_.init(1), batches,
+                draw(K, B, n_act), draw(K, B, n_act))
+
+    def k2_groups(st):
+        opts = (st.policy_opt, st.qf_opt, st.alpha_opt)
+        return {
+            "params": [p.detach() for m in (st.policy, st.qf, st.target_qf)
+                       for p in m.parameters()],
+            "log_alpha": [st.log_alpha.detach()],
+            "mu": [m for o in opts for m in o.mu],
+            "nu": [v for o in opts for v in o.nu]}
+
+    k2_pins = {"params": (2e-4, 2e-5), "log_alpha": (1e-5, 1e-6),
+               "mu": (2e-4, 2e-6), "nu": (2e-3, 1e-8),
+               "metrics": (5e-4, 5e-5)}
+
+    def k2_against_plain(what, n_obs, n_act, width, B, K, pins):
+        """Max |kernel - plain| per group; held to `pins` where given, and
+        every kernel output finite either way."""
+        sac_, st_k, st_p, batches, e_next, e_new = k2_case(n_obs, n_act,
+                                                           width, B, K)
+        st_k, m_k = k2(sac_, st_k, batches, e_next, e_new)
+        torch.cuda.synchronize()
+        st_p, m_p = fused_sac.fused_sac_chain_plain(sac_, st_p, batches,
+                                                    e_next, e_new)
+        got, want = k2_groups(st_k), k2_groups(st_p)
+        got["metrics"] = [m_k[n] for n in fused_sac.METRIC_NAMES]
+        want["metrics"] = [m_p[n] for n in fused_sac.METRIC_NAMES]
+        errs = {}
+        for name in got:
+            if pins is not None:
+                check(f"K2 {what} {name}", got[name], want[name], *pins[name])
+            elif not all(bool(torch.isfinite(g).all()) for g in got[name]):
+                fail(f"K2 {what}: {name} is not finite")
+            errs[name] = max_err(got[name], want[name])
+        counts = [(o.count, w.count) for o, w in zip(
+            (st_k.policy_opt, st_k.qf_opt, st_k.alpha_opt),
+            (st_p.policy_opt, st_p.qf_opt, st_p.alpha_opt))]
+        if any(a != b or a != K for a, b in counts):
+            fail(f"K2 {what}: Adam counts {counts}, expected {K}")
+        print(f"K2 {what}: max |kernel - plain| "
+              + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+        return errs, got, want
+
+    k2_against_plain("hidden 32, B=32, K=3", 5, 2, 32, 32, 3, k2_pins)
+    k2_errs, _, _ = k2_against_plain("256x2, B=512, K=4", 11, 3, 256, 512, 4,
+                                     k2_pins)
+    k2_err = max(k2_errs[n] for n in ("params", "log_alpha", "mu", "nu"))
+    drift, got, want = k2_against_plain("256x2, B=512, K=128 (drift)", 11, 3,
+                                        256, 512, 128, None)
+    if max(drift["params"], drift["log_alpha"]) > K2_DRIFT["params"]:
+        fail(f"K2 drifts from its plain version by {drift['params']:.3g} "
+             f"in 128 steps, over {K2_DRIFT['params']:.3g}")
+    check("K2 K=128 metrics", got["metrics"], want["metrics"],
+          K2_DRIFT["metrics_rtol"], K2_DRIFT["metrics_atol"])
+
+    # the same 128 steps by the plain version in float64
+    sac_d, st_d, _, batches_d, e_next_d, e_new_d = k2_case(11, 3, 256, 512,
+                                                           128)
+    for module in (st_d.policy, st_d.qf, st_d.target_qf):
+        module.double()
+    st_d.log_alpha.data = st_d.log_alpha.data.double()
+    for opt in (st_d.policy_opt, st_d.qf_opt, st_d.alpha_opt):
+        opt.mu = [m.double() for m in opt.mu]
+        opt.nu = [v.double() for v in opt.nu]
+    st_d, _ = fused_sac.fused_sac_chain_plain(
+        sac_d, st_d, {n: v.double() for n, v in batches_d.items()},
+        e_next_d.double(), e_new_d.double())
+    truth = k2_groups(st_d)["params"]
+    kernel_off = max_err([g.double() for g in got["params"]], truth)
+    plain_off = max_err([w.double() for w in want["params"]], truth)
+    print(f"K2 256x2, B=512, K=128: parameters against the float64 plain "
+          f"version: kernel {kernel_off:.3g}, float32 plain version "
+          f"{plain_off:.3g}")
+    if kernel_off > K2_DRIFT["f64_factor"] * plain_off + 1e-6:
+        fail(f"K2 ends {kernel_off:.3g} from the float64 result, the "
+             f"float32 plain version {plain_off:.3g}")
+
+    sac2, st2, _, batches2, e_next2, e_new2 = k2_case(11, 3, 256, 512, 128)
+    k2_ms = time_ms(lambda: k2(sac2, st2, batches2, e_next2, e_new2), 5, 1)
+    k2_plain_ms = time_ms(lambda: fused_sac.fused_sac_chain_plain(
+        sac2, st2, batches2, e_next2, e_new2), 2, 1)
+
+    def eager_128():
+        for k in range(128):
+            sac2.train_step(st2, {n: v[k] for n, v in batches2.items()},
+                            e_next2[k], e_new2[k])
+    k2_eager_ms = time_ms(eager_128, 2, 1)
+    k2_bound = bound_ms(*k2_work(512, 11, 3, 256, 2, 128))
+    print(f"K2 256x2, B=512, K=128: {k2_ms:.3f} ms per chain "
+          f"({k2_ms / 128 * 1e3:.1f} us per step); plain version "
+          f"{k2_plain_ms:.1f} ms; bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]}); on {card}")
+    print(f"K2 replaces 128 eager train_step calls on the same batches: "
+          f"{k2_eager_ms:.1f} ms ({k2_eager_ms / 128:.3f} ms per step)")
+
+    # ---- 5. the slice on a small input: card vs CPU -----------------------
     from ilswiss_tpu_torch.envs import make_vec
     from ilswiss_tpu_torch.runtime.loop import (
         Noise, OffPolicyConfig, OffPolicyLoop,
@@ -284,93 +469,120 @@ def main() -> int:
     small = OffPolicyConfig(batch_size=16, replay_capacity=256,
                             min_steps_before_training=8,
                             grad_steps_per_iter=4)
-    runs = {}
-    for where in ("cuda", "cpu"):
+
+    def small_slice(where, fused):
         v = make_vec("hopper", 4, device=where)
         a = SAC(11, 3, SACConfig(), net_size=32, num_hidden_layers=2,
-                use_fused_act=True, device=where)
+                use_fused_act=True, use_fused_chain=fused, device=where)
         lp = OffPolicyLoop(v, a, small)
         cpu_env = make_vec("hopper", 4, device="cpu").env
         r = lp.warmup(lp.init(0, noise=CopiedNoise(1, cpu_env, where)))
-        r, m_small = lp.train_epoch(r, steps_per_epoch=8)
-        runs[where] = (r, m_small)
-    (rg, mg), (rc, mc) = runs["cuda"], runs["cpu"]
-    pairs = [(rg.env_state.obs, rc.env_state.obs)]
-    pairs += list(zip(rg.env_state.internal, rc.env_state.internal))
-    pairs += [(rg.replay.data[k], rc.replay.data[k]) for k in rc.replay.data]
-    pairs += [(x, y) for x, y in zip(rg.algo_state.policy.parameters(),
-                                     rc.algo_state.policy.parameters())]
-    pairs += [(x, y) for x, y in zip(rg.algo_state.qf.parameters(),
-                                     rc.algo_state.qf.parameters())]
-    slice_err = 0.0
-    for x, y in pairs:
-        x = x.detach().cpu()
-        y = y.detach()
-        if not torch.allclose(x, y, rtol=2e-4, atol=5e-3):
-            fail(f"slice on the card differs from the CPU run by "
-                 f"{float((x - y).abs().max()):.3g}")
-        slice_err = max(slice_err, float((x - y).abs().max()))
-    for k in mc:
-        if not math.isclose(mg[k], mc[k], rel_tol=2e-4, abs_tol=5e-3):
-            fail(f"metric {k}: {mg[k]} on the card, {mc[k]} on the CPU")
-    if (rg.replay.ptr, rg.replay.size) != (rc.replay.ptr, rc.replay.size):
-        fail("replay cursors differ")
-    print(f"slice, 4 envs, 2 warmup + 2 training iterations: card vs CPU "
-          f"max |err| {slice_err:.3g} (rtol 2e-4, atol 5e-3)")
+        return lp.train_epoch(r, steps_per_epoch=8)
 
-    # ---- 6. the main path: SAC-Hopper ------------------------------------
-    num_envs, steps_per_epoch = 128, 1_280
-    vec = make_vec("hopper", num_envs)
-    sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
-              net_size=256, num_hidden_layers=2, use_fused_act=True)
+    for fused in (False, True):
+        k2.launches = 0
+        (rg, mg), (rc, mc) = small_slice("cuda", fused), small_slice("cpu",
+                                                                     fused)
+        if k2.launches != (2 if fused else 0):
+            fail(f"small slice, fused={fused}: K2 launched {k2.launches} "
+                 f"times")
+        pairs = [(rg.env_state.obs, rc.env_state.obs)]
+        pairs += list(zip(rg.env_state.internal, rc.env_state.internal))
+        pairs += [(rg.replay.data[k], rc.replay.data[k])
+                  for k in rc.replay.data]
+        pairs += list(zip(k2_groups(rg.algo_state)["params"],
+                          k2_groups(rc.algo_state)["params"]))
+        slice_err = 0.0
+        for x, y in pairs:
+            x = x.detach().cpu()
+            y = y.detach()
+            if not torch.allclose(x, y, rtol=2e-4, atol=5e-3):
+                fail(f"slice on the card differs from the CPU run by "
+                     f"{float((x - y).abs().max()):.3g}")
+            slice_err = max(slice_err, float((x - y).abs().max()))
+        for k in mc:
+            if not math.isclose(mg[k], mc[k], rel_tol=2e-4, abs_tol=5e-3):
+                fail(f"metric {k}: {mg[k]} on the card, {mc[k]} on the CPU")
+        if (rg.replay.ptr, rg.replay.size) != (rc.replay.ptr,
+                                               rc.replay.size):
+            fail("replay cursors differ")
+        print(f"slice, 4 envs, 2 warmup + 2 training iterations, "
+              f"{'fused chain' if fused else 'eager steps'}: card vs CPU "
+              f"max |err| {slice_err:.3g} (rtol 2e-4, atol 5e-3)")
+
+    # ---- 6. SAC-Hopper at full width: the eager path, then the main path --
+    num_envs = 128
     config = OffPolicyConfig(batch_size=512, replay_capacity=1_000_000,
                              min_steps_before_training=5_000,
                              grad_steps_per_iter=128)
-    loop = OffPolicyLoop(vec, sac, config)
-    runner = loop.init(0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     warmup_iters = max(1, config.min_steps_before_training // num_envs)
-    train_iters = max(1, steps_per_epoch // num_envs)
 
-    k1.launches = 0
-    k3.launches = 0
-    t0 = time.perf_counter()
-    runner = loop.warmup(runner)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    runner, metrics = loop.train_epoch(runner, steps_per_epoch)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = {"planar_forward": k1.launches,
-                "fused_policy_forward": k3.launches}
+    def drive(fused, train_iters):
+        """Warmup and `train_iters` training iterations from seed 0, with
+        every launch count set to 0 just before and read just after."""
+        vec = make_vec("hopper", num_envs)
+        sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
+                  net_size=256, num_hidden_layers=2, use_fused_act=True,
+                  use_fused_chain=fused)
+        loop = OffPolicyLoop(vec, sac, config)
+        runner = loop.init(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k2.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        runner = loop.warmup(runner)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runner, metrics = loop.train_epoch(runner, train_iters * num_envs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {"planar_forward": k1.launches,
+                    "fused_sac_chain": k2.launches,
+                    "fused_policy_forward": k3.launches}
 
-    control_steps = warmup_iters + train_iters
-    want_k1 = 4 * hop.frame_skip * control_steps
-    if launches["planar_forward"] != want_k1:
-        fail(f"K1 launched {launches['planar_forward']} times on the main "
-             f"path, expected {want_k1} (16 x {control_steps} control steps)")
-    if launches["fused_policy_forward"] != train_iters:
-        fail(f"K3 launched {launches['fused_policy_forward']} times on the "
-             f"main path, expected {train_iters} acting calls")
-    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
-    if bad:
-        fail(f"non-finite metrics: {bad}")
-    obs = runner.env_state.obs
-    if tuple(obs.shape) != (num_envs, 11) or not torch.isfinite(obs).all():
-        fail("env observations are not finite [128, 11]")
-    if runner.total_env_steps != control_steps * num_envs \
-            or runner.replay.size != control_steps * num_envs:
-        fail("env-step or replay counts are wrong")
-    train_rate = steps_per_epoch / (t2 - t1)
-    print(f"main path: warmup {warmup_iters} iterations in {t1 - t0:.2f} s "
-          f"({warmup_iters * num_envs / (t1 - t0):.1f} env-steps/s), "
-          f"training {train_iters} iterations of 128 grad steps in "
-          f"{t2 - t1:.2f} s ({train_rate:.1f} env-steps/s), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, on {card}")
-    print("main path metrics: "
-          + json.dumps({k: round(v, 6) for k, v in metrics.items()}))
-    print(f"launches on the main path: {json.dumps(launches)}")
+        what = "main path" if fused else "eager path"
+        control_steps = warmup_iters + train_iters
+        want = {"planar_forward": 4 * hop.frame_skip * control_steps,
+                "fused_sac_chain": train_iters if fused else 0,
+                "fused_policy_forward": train_iters}
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want} (K1 16 per "
+                 f"control step, K3 one per acting call, K2 one per fused "
+                 f"training iteration)")
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        if bad or set(metrics) != set(fused_sac.METRIC_NAMES):
+            fail(f"{what}: metrics {sorted(metrics)}, non-finite {bad}")
+        obs = runner.env_state.obs
+        if tuple(obs.shape) != (num_envs, 11) \
+                or not torch.isfinite(obs).all():
+            fail(f"{what}: env observations are not finite [128, 11]")
+        if runner.total_env_steps != control_steps * num_envs \
+                or runner.replay.size != control_steps * num_envs:
+            fail(f"{what}: env-step or replay counts are wrong")
+        if runner.algo_state.policy_opt.count != 128 * train_iters:
+            fail(f"{what}: the policy took "
+                 f"{runner.algo_state.policy_opt.count} gradient steps")
+        rate = train_iters * num_envs / (t2 - t1)
+        print(f"{what}: warmup {warmup_iters} iterations in {t1 - t0:.2f} s "
+              f"({warmup_iters * num_envs / (t1 - t0):.1f} env-steps/s), "
+              f"training {train_iters} iterations of 128 grad steps in "
+              f"{t2 - t1:.3f} s ({(t2 - t1) / train_iters * 1e3:.1f} ms per "
+              f"iteration, {rate:.1f} env-steps/s), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, on "
+              f"{card}")
+        print(f"{what} metrics: "
+              + json.dumps({k: round(v, 6) for k, v in metrics.items()}))
+        print(f"launches on the {what}: {json.dumps(launches)}")
+        return launches
+
+    drive(fused=False, train_iters=2)
+    launches = drive(fused=True, train_iters=10)
+
+    for name, (nv, nrow) in K4_SHAPES.items():
+        k4_bound = bound_ms(*k4_work(num_envs, nv, nrow, K4_SWEEPS))
+        print(f"K4 (still to be ported) {name}, B={num_envs}, nv={nv}, "
+              f"{nrow} rows, {K4_SWEEPS} sweeps: bound {k4_bound[0]:.6f} ms "
+              f"({k4_bound[1]})")
 
     kernels = [
         {"name": "planar_forward", "route": "cuda",
@@ -380,6 +592,13 @@ def main() -> int:
          "max_abs_err": hopper_err, "ms": k1_times[128],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "fused_sac_chain", "route": "cuda",
+         "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
+         "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
+         "launches": launches["fused_sac_chain"],
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
         {"name": "fused_policy_forward", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "ilswiss_tpu/ops/fused_mlp.py:34",

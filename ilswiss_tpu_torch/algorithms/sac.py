@@ -16,8 +16,11 @@ Same update as the JAX `SAC.train_step`:
 
 The twin critics are one stacked pair (`TwinQ`, kernels [2, in, out]),
 evaluated as one batched product per layer.  Adam is optax.adam's formula
-with b2 = 0.999 and eps = 1e-8.  The backward is autograd; the JAX
-package's is XLA autodiff outside any kernel.
+with b2 = 0.999 and eps = 1e-8.  `train_step` takes its backward from
+autograd, as the JAX `train_step` takes its from XLA autodiff.
+`train_chain` (with `use_fused_chain`) runs K steps through
+ops/fused_sac.py, whose backward is derived by hand: kernel K2 for CUDA
+tensors, tensor operations for CPU tensors, no autograd in either.
 
 Unlike the JAX function, `train_step` updates the state's tensors IN
 PLACE (parameters, targets, moments, log alpha) and returns the same
@@ -38,7 +41,9 @@ from torch import nn
 from ilswiss_tpu_torch.models import distributions as D
 from ilswiss_tpu_torch.models.networks import FlattenMLP
 from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
+from ilswiss_tpu_torch.data.replay import ReplayState, replay_sample
 from ilswiss_tpu_torch.ops.fused_mlp import fused_gaussian_policy_forward
+from ilswiss_tpu_torch.ops.fused_sac import fused_sac_chain
 from ilswiss_tpu_torch.utils.device import resolve_device
 from ilswiss_tpu_torch.utils.pytree import copy_params, soft_update
 
@@ -113,11 +118,16 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
-    @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
+        self.apply(grads, self.count)
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor], t: int) -> None:
+        """The update at step `t` (bias correction 1 - b^t); leaves
+        `count` alone."""
+        bc1 = 1.0 - self.b1 ** t
+        bc2 = 1.0 - self.b2 ** t
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             m.mul_(self.b1).add_((1.0 - self.b1) * g)
             v.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
@@ -141,7 +151,8 @@ class SAC:
     def __init__(self, obs_size: int, action_size: int,
                  config: SACConfig = SACConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 use_fused_act: bool = False, device=None):
+                 use_fused_act: bool = False, use_fused_chain: bool = False,
+                 device=None):
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
@@ -149,6 +160,10 @@ class SAC:
         # acting through kernel K3 (ops/fused_mlp.py); the training
         # forward stays the nn.Module path
         self.use_fused_act = use_fused_act
+        # the loop's K gradient steps per iteration as one call of
+        # `train_chain` (kernel K2, ops/fused_sac.py) instead of K
+        # `train_step` calls
+        self.use_fused_chain = use_fused_chain
         self.device = resolve_device(device)
         self.target_entropy = (config.target_entropy
                                if config.target_entropy is not None
@@ -188,6 +203,25 @@ class SAC:
         if deterministic:
             return torch.tanh(mean)
         return D.tanh_normal_sample(mean, log_std, eps)[0]
+
+    def train_chain(self, state: SACState, replay: ReplayState, noise,
+                    batch_size: int, num_steps: int
+                    ) -> tuple[SACState, Dict[str, torch.Tensor]]:
+        """`num_steps` gradient steps in one call of `fused_sac_chain`, in
+        place; returns (state, metrics) with each metric a [num_steps]
+        tensor.  The draws are taken from `noise` in the order the loop's
+        `train_step` path takes them (for each step `replay`, then
+        `train`), so both paths see the same batches and noise."""
+        shape = (batch_size, self.action_size)
+        u, eps_next, eps_new = [], [], []
+        for _ in range(num_steps):
+            u.append(noise.replay(batch_size))
+            e_next, e_new = noise.train(shape)
+            eps_next.append(e_next)
+            eps_new.append(e_new)
+        batches = replay_sample(replay, torch.stack(u))
+        return fused_sac_chain(self, state, batches, torch.stack(eps_next),
+                               torch.stack(eps_new))
 
     def train_step(self, state: SACState, batch: Dict[str, torch.Tensor],
                    eps_next: torch.Tensor, eps_new: torch.Tensor

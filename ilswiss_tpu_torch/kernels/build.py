@@ -14,8 +14,11 @@ left out on purpose: the planar-dynamics kernel needs IEEE `sinf`, `cosf`,
 `sqrtf` and `powf`.  The planar-dynamics kernel is also built with
 `-fmad=false`: without contracted multiply-adds it rounds like its plain
 PyTorch version, whose elementwise operations are unfused, so the two
-stay comparable through the 15 Gauss-Seidel sweeps.  `build_all` starts
-one `nvcc` per source, all at once.
+stay comparable through the 15 Gauss-Seidel sweeps.  The fused SAC chain
+keeps contraction on: its work is matrix products, which accumulate with
+fused multiply-adds both here and in the library products of its plain
+version, so `-fmad=false` would make the two differ more, not less.
+`build_all` starts one `nvcc` per source, all at once.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("planar_forward", "fused_mlp")
+SOURCES = ("planar_forward", "fused_mlp", "fused_sac")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 EXTRA_FLAGS = {"planar_forward": ("-fmad=false",)}

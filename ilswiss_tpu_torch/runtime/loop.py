@@ -5,7 +5,10 @@
 The JAX package scans this inside one jitted program; here it is a Python
 loop of eager PyTorch calls, with the metrics kept on the device until an
 epoch ends.  K = `grad_steps_per_iter` defaults to the number of envs
-(one gradient step per env step).
+(one gradient step per env step).  An algorithm with `use_fused_chain`
+set takes the K steps as one `train_chain` call (kernel K2); the JAX loop
+also requires that no mesh axis is set, which has no counterpart here
+until data parallelism is ported.
 
 Every random draw of an iteration comes from one `noise` object, held by
 the RunnerState as JAX holds its key.  `Noise` draws from a
@@ -84,8 +87,9 @@ class RunnerState:
 
 class OffPolicyLoop:
     """Off-policy runtime for an algorithm with `init(seed)`,
-    `act(state, obs, eps)` and `train_step(state, batch, eps_next,
-    eps_new)` (SAC)."""
+    `act(state, obs, eps)`, `train_step(state, batch, eps_next, eps_new)`
+    and, where `use_fused_chain` is set, `train_chain(state, replay, noise,
+    batch_size, num_steps)` (SAC)."""
 
     def __init__(self, vec_env: VectorEnv, algo, config: OffPolicyConfig):
         self.vec_env = vec_env
@@ -138,6 +142,11 @@ class OffPolicyLoop:
                     ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
         runner = self._collect_iter(runner, random_actions=False)
         cfg = self.config
+        if getattr(self.algo, "use_fused_chain", False):
+            runner.algo_state, metrics = self.algo.train_chain(
+                runner.algo_state, runner.replay, runner.noise,
+                cfg.batch_size, self.grad_steps_per_iter)
+            return runner, {k: v.mean() for k, v in metrics.items()}
         shape = (cfg.batch_size, self.vec_env.env.action_size)
         sums: Dict[str, torch.Tensor] = {}
         state = runner.algo_state

@@ -189,3 +189,15 @@ def replay_to_numpy(state: ReplayState) -> Dict[str, Any]:
     return {"data": {k: v.cpu().numpy() for k, v in state.data.items()},
             "ep_id": state.ep_id.cpu().numpy(), "ptr": state.ptr,
             "size": state.size, "env_ep": state.env_ep.cpu().numpy()}
+
+
+def batches_from_numpy(batches: Dict[str, Any], device
+                       ) -> Dict[str, torch.Tensor]:
+    """A dict of [K, B, ...] arrays (the fused chain's pre-sampled batches,
+    or any batch dict) as float32 tensors on `device`."""
+    return {k: _tensor(v, device, torch.float32) for k, v in batches.items()}
+
+
+def metrics_to_numpy(metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in metrics.items()}

@@ -1,5 +1,6 @@
-"""Kernels K1 and K3 against their plain PyTorch versions on a CUDA card
-(ilswiss_tpu_torch/csrc/planar_forward.cu, csrc/fused_mlp.cu).
+"""Kernels K1, K2 and K3 against their plain PyTorch versions on a CUDA
+card (ilswiss_tpu_torch/csrc/planar_forward.cu, csrc/fused_sac.cu,
+csrc/fused_mlp.cu).
 
 Every test here is marked `gpu` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine without it:
@@ -9,16 +10,19 @@ file imports no JAX, so it runs on a machine without it:
 (`--noconftest`: tests/conftest.py configures JAX.)  Tolerances: K1
 rtol 2e-4, atol 5e-3 per forward evaluation and control step (the
 planar pin of tests/test_planar_dynamics.py:97-98); K3 2e-5 (the pin of
-tests/test_pallas_ops.py).
+tests/test_pallas_ops.py); K2 the pins of tests/test_fused_sac.py:91-121
+(parameters and targets rtol 2e-4, atol 2e-5; log alpha 1e-5, 1e-6; mu
+2e-4, 2e-6; nu 2e-3, 1e-8; metrics 5e-4, 5e-5).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
 from ilswiss_tpu_torch.envs.locomotion import _model
 from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
-from ilswiss_tpu_torch.ops import fused_mlp
+from ilswiss_tpu_torch.ops import fused_mlp, fused_sac
 from ilswiss_tpu_torch.ops import planar_dynamics as pd
 
 F32 = dict(rtol=2e-4, atol=5e-3)
@@ -95,3 +99,101 @@ def test_fused_policy_kernel_matches_plain(cuda):
                 *fused_mlp._layers(policy), obs)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+def _chain_inputs(seed, K, B, n_obs, n_act, device):
+    rng = np.random.RandomState(seed)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    batches = {"obs": f(rng.randn(K, B, n_obs)),
+               "action": f(np.tanh(rng.randn(K, B, n_act))),
+               "reward": f(rng.randn(K, B)),
+               "terminal": f(rng.rand(K, B) < 0.2),
+               "next_obs": f(rng.randn(K, B, n_obs))}
+    return batches, f(rng.randn(K, B, n_act)), f(rng.randn(K, B, n_act))
+
+
+K2_CASES = {
+    # n_obs, n_act, width, layers, B, K, config, Adam count at the start
+    "small": (5, 2, 32, 2, 32, 3, SACConfig(reward_scale=2.0), 0),
+    "full_width": (11, 3, 256, 2, 512, 4, SACConfig(), 0),
+    "one_layer_fixed_alpha": (4, 1, 20, 1, 9, 2,
+                              SACConfig(train_alpha=False), 0),
+    "three_layers_clip_from_count_5": (
+        5, 2, 70, 3, 70, 2,
+        SACConfig(beta_1=0.25, q_target_min=-0.2, q_target_max=0.3), 5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_fused_sac_kernel_matches_plain(case, cuda):
+    """K2: one launch of K steps against the plain chain from the same
+    seeded state and inputs."""
+    n_obs, n_act, width, layers, B, K, cfg, count0 = K2_CASES[case]
+    sac = SAC(n_obs, n_act, cfg, net_size=width, num_hidden_layers=layers,
+              device=cuda)
+    states = [sac.init(0), sac.init(0)]
+    for st in states:
+        for opt in (st.policy_opt, st.qf_opt, st.alpha_opt):
+            opt.count = count0
+    batches, eps_next, eps_new = _chain_inputs(1, K, B, n_obs, n_act, cuda)
+    before = fused_sac.fused_sac_chain.launches
+    got, got_m = fused_sac.fused_sac_chain(sac, states[0], batches, eps_next,
+                                           eps_new)
+    torch.cuda.synchronize()
+    assert fused_sac.fused_sac_chain.launches == before + 1
+    want, want_m = fused_sac.fused_sac_chain_plain(sac, states[1], batches,
+                                                   eps_next, eps_new)
+    for g, w in zip(
+            list(got.policy.parameters()) + list(got.qf.parameters())
+            + list(got.target_qf.parameters()),
+            list(want.policy.parameters()) + list(want.qf.parameters())
+            + list(want.target_qf.parameters())):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got.log_alpha, want.log_alpha, rtol=1e-5,
+                               atol=1e-6)
+    for name in ("policy_opt", "qf_opt", "alpha_opt"):
+        g_opt, w_opt = getattr(got, name), getattr(want, name)
+        assert g_opt.count == w_opt.count
+        for g, w in zip(g_opt.mu, w_opt.mu):
+            torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-6)
+        for g, w in zip(g_opt.nu, w_opt.nu):
+            torch.testing.assert_close(g, w, rtol=2e-3, atol=1e-8)
+    assert got.policy_opt.count == count0 + K
+    for name in fused_sac.METRIC_NAMES:
+        assert tuple(got_m[name].shape) == (K,)
+        torch.testing.assert_close(got_m[name], want_m[name], rtol=5e-4,
+                                   atol=5e-5)
+
+
+@pytest.mark.gpu
+def test_fused_sac_kernel_is_deterministic(cuda):
+    """Two launches from the same state and inputs give the same bits:
+    every reduction in K2 has a fixed order."""
+    sac = SAC(11, 3, SACConfig(), net_size=256, num_hidden_layers=2,
+              device=cuda)
+    batches, eps_next, eps_new = _chain_inputs(2, 3, 512, 11, 3, cuda)
+    finals = []
+    for _ in range(2):
+        st, m = fused_sac.fused_sac_chain(sac, sac.init(0), batches,
+                                          eps_next, eps_new)
+        finals.append([p.detach().clone() for p in st.policy.parameters()]
+                      + [p.detach().clone() for p in st.qf.parameters()]
+                      + [m[n].clone() for n in fused_sac.METRIC_NAMES])
+    for x, y in zip(*finals):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_fused_sac_kernel_rejects_bad_inputs(cuda):
+    sac = SAC(5, 2, SACConfig(), net_size=16, num_hidden_layers=2,
+              device=cuda)
+    batches, eps_next, eps_new = _chain_inputs(0, 2, 8, 5, 2, cuda)
+    before = fused_sac.fused_sac_chain.launches
+    with pytest.raises(ValueError):
+        fused_sac.fused_sac_chain(sac, sac.init(0), batches,
+                                  eps_next.double(), eps_new)
+    with pytest.raises(ValueError):
+        fused_sac.fused_sac_chain(sac, sac.init(0), batches, eps_next.cpu(),
+                                  eps_new)
+    assert fused_sac.fused_sac_chain.launches == before

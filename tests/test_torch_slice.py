@@ -1,8 +1,9 @@
 """The port's main path as a whole: SAC on hopper through `make_vec`,
 `SAC` and `OffPolicyLoop` (ilswiss_tpu_torch/runtime/loop.py), and, in
-the slow case, one training iteration held against the JAX loop
-(ilswiss_tpu/runtime/loop.py) from the same carried-over RunnerState with
-every random draw of the JAX iteration replayed.
+the slow cases, one training iteration (eager, and through the fused
+chain) held against the JAX loop (ilswiss_tpu/runtime/loop.py) from the
+same carried-over RunnerState with every random draw of the JAX iteration
+replayed.
 """
 
 import math
@@ -28,11 +29,11 @@ torch.set_num_threads(1)
 NUM_ENVS, BATCH, HIDDEN, K = 2, 8, 16, 2
 
 
-def _port_loop(device="cpu"):
+def _port_loop(device="cpu", use_fused_chain=False):
     vec = make_vec("hopper", NUM_ENVS, device=device)
     sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
               net_size=HIDDEN, num_hidden_layers=2, use_fused_act=True,
-              device=device)
+              use_fused_chain=use_fused_chain, device=device)
     cfg = OffPolicyConfig(batch_size=BATCH, replay_capacity=64,
                           min_steps_before_training=4,
                           grad_steps_per_iter=K)
@@ -124,6 +125,17 @@ def test_training_iteration_matches_jax_loop():
     """One training iteration from the JAX loop's carried-over
     RunnerState.  rtol 2e-4, atol 5e-3: the JAX env on the CPU runs the
     general engine, not the planar math."""
+    _iteration_against_jax(use_fused_chain=False)
+
+
+@pytest.mark.slow
+def test_fused_training_iteration_matches_jax_loop():
+    """The same iteration with the port's K gradient steps taken as one
+    fused chain; the JAX side stays the scan of `train_step`."""
+    _iteration_against_jax(use_fused_chain=True)
+
+
+def _iteration_against_jax(use_fused_chain):
     from ilswiss_tpu.algorithms.sac import SAC as JSAC
     from ilswiss_tpu.envs import make_vec as jmake_vec
     from ilswiss_tpu.runtime.loop import OffPolicyConfig as JConfig
@@ -142,7 +154,7 @@ def test_training_iteration_matches_jax_loop():
     jnext, jmetrics = train_epoch(jrunner)
     jnext = jax.tree.map(np.asarray, jnext)
 
-    loop = _port_loop()
+    loop = _port_loop(use_fused_chain=use_fused_chain)
     runner = RunnerState(
         noise=_ReplayNoise(draws),
         env_state=convert.env_state_from_jax(snapshot.env_state, "cpu"),
