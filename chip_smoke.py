@@ -7,16 +7,16 @@ from the root of a checkout.  It needs one CUDA device and `nvcc`, and
 exits non-zero on any failure; no phase catches its own error.
 
   1. probe: the card's name and power limit; TF32 off for matmuls and cuDNN;
-  2. build kernels K1 (csrc/planar_forward.cu), K2 (csrc/fused_sac.cu) and
-     K3 (csrc/fused_mlp.cu) from the checkout's sources into build/kernels/,
-     one nvcc each, in parallel, printing `-Xptxas -v`;
+  2. build kernels K1 (csrc/planar_forward.cu), K2 (csrc/fused_sac.cu),
+     K3 (csrc/fused_mlp.cu) and K4 (csrc/pgs.cu) from the checkout's sources
+     into build/kernels/, one nvcc each, in parallel, printing `-Xptxas -v`;
   3. K1 against its plain PyTorch version on the card: hopper, walker,
      halfcheetah (Euler, damped) and invertedpendulum (no contacts), at
      B = 128 and a ragged B = 100, one forward evaluation and one control
      step each at rtol 2e-4, atol 5e-3; times at B = 128 and B = 1024;
   4. K3 against its plain version at B = 128, 11 -> 256 -> 256 -> 3 + 3,
      rtol = atol = 2e-5; times, and a three-addmm PyTorch chain as the
-     yardstick;
+     yardstick; the same check at ant's shape (105 -> 256 -> 256 -> 8 + 8);
   4b. K2 against its plain version from the same seeded state and inputs:
      hidden 32, B = 32, K = 3 and full width (11 / 3, 256 x 2, B = 512) at
      K = 4, at the pins of tests/test_fused_sac.py (parameters and targets
@@ -25,7 +25,18 @@ exits non-zero on any failure; no phase catches its own error.
      output finite and the drift printed, gated at K2_DRIFT (see there),
      with the plain version in float64 as the yardstick;
      times at K = 128 of the kernel, the plain version and 128 eager
-     `train_step` calls;
+     `train_step` calls; the pins again at ant's shape (105 / 8, 256 x 2,
+     B = 512, K = 4) and the kernel's time there at K = 128;
+  4c. K4 against its plain version on seeded random problems shaped like the
+     engine's (nr / nv / B = 6/4/4, 38/6/9, 116/14/128, 150/23/128, 15
+     sweeps) at rtol 2e-4, atol 1e-4; rows that are not active exactly zero,
+     every force >= 0, two launches bit-equal; times at ant's and humanoid's
+     shapes, B = 128;
+  4d. K4 inside the general engine: one `forward` and one control step of
+     ant and of humanoid at B = 128 with the kernel, against the same with
+     the plain solve named, at rtol 2e-4, atol 5e-3 on values divided by
+     max(1, max |plain|) (the float32 pin of tests/test_torch_ant.py); times
+     of one ant `forward` and one ant control step;
   5. the slice on a small input (4 envs, 32-wide nets): warmup and two
      training iterations on the card and on the CPU, from the same seed
      and the same draws, agree at rtol 2e-4, atol 5e-3; once with eager
@@ -38,11 +49,18 @@ exits non-zero on any failure; no phase catches its own error.
      use_fused_chain=True`) for warmup and one epoch of 10 iterations.
      Before each, every launch counter is set to 0, and read just after;
      each kernel must have launched exactly as often as the path calls it,
-     and every metric must be finite.
+     and every metric must be finite;
+  7. SAC-Ant through the same entry points at full width (128 envs, batch
+     512, 256 x 2 nets, a 1M ring, K = 128, `min_steps_before_training`
+     5000 as exp_specs/sac/sac_ant.yaml), the main path only: warmup and 10
+     training iterations, with K4 = 20 launches per control step, K2 = 10,
+     K3 = 10 and K1 = 0;
+  8. humanoid, whose widths K2 and K3 do not take: `make_vec("humanoid",
+     128)` stepped 5 control steps with random actions, K4 = 100 launches,
+     finite observations [128, 348].
 
-It prints the roofline bound of K4 (not ported yet) from its shapes, a JSON
-line with every ported kernel's numbers, the card's name and power limit,
-and as its last line {"ok": true, "device": {...}}.
+It prints a JSON line with every kernel's numbers, the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -137,19 +155,20 @@ def k2_work(B: int, O: int, A: int, H: int, L: int, K: int
     return nbytes, flops
 
 
-# K4 (ilswiss_tpu/ops/pgs_pallas.py, still to be ported): (nv, nrow) of the
-# models that reach it, as `ilswiss_tpu.envs.locomotion._model(name)` builds
-# them, and the sweeps of its env class
+# (nv, nrow) of the models whose K4 times are taken, as
+# `ilswiss_tpu_torch.envs.locomotion._model(name)` builds them, and the
+# sweeps of their env classes
 K4_SHAPES = {"ant": (14, 116), "humanoid": (23, 150)}
 K4_SWEEPS = 15
 
 
 def k4_work(B: int, nv: int, nrow: int, iters: int) -> tuple[float, float]:
-    """(bytes, flops) of one K4 solve of B envs, from the u-form sweep of
-    pgs_pallas.py: J and W [nrow, nv] and five row vectors read, f written;
-    the warm start u = W f0, then per sweep and row a dot J_r . u, the
-    row update, and u += df W_r."""
-    nbytes = 4 * B * (2 * nrow * nv + 5 * nrow + nrow)
+    """(bytes, flops) of one K4 solve of B envs, from the u-form sweep: J
+    and W [nrow, nv] and four float row vectors read, the mask read at one
+    byte a row, f written; the warm start u = W f0, then per sweep and row
+    a dot J_r . u, the row update, and u += df W_r.  Every row is swept
+    whether it is active or not, so the count does not depend on the data."""
+    nbytes = B * (4 * 2 * nrow * nv + 4 * 4 * nrow + nrow + 4 * nrow)
     flops = B * (2 * nrow * nv + iters * nrow * (4 * nv + 6))
     return nbytes, flops
 
@@ -204,11 +223,14 @@ def main() -> int:
         print(b.log.strip())
 
     from ilswiss_tpu_torch.envs.locomotion import _model
-    from ilswiss_tpu_torch.ops import fused_mlp, fused_sac
+    from ilswiss_tpu_torch.kernels.engine_profile import grounded_state
+    from ilswiss_tpu_torch.ops import fused_mlp, fused_sac, pgs
     from ilswiss_tpu_torch.ops import planar_dynamics as pd
+    from ilswiss_tpu_torch.ops import rigid_body as rb
     k1 = pd.planar_forward
     k2 = fused_sac.fused_sac_chain
     k3 = fused_mlp.fused_gaussian_policy_forward
+    k4 = pgs.pgs_solve
     gen = torch.Generator().manual_seed(0)
 
     # ---- 3. K1 vs its plain version --------------------------------------
@@ -324,6 +346,17 @@ def main() -> int:
     print(f"K3 B=128: {k3_ms:.4f} ms; plain version {k3_plain_ms:.4f} ms; "
           f"three-addmm chain {k3_library_ms:.4f} ms; bound "
           f"{k3_bound[0]:.6f} ms ({k3_bound[1]})")
+    ant_policy = TanhGaussianPolicy(105, 8, (256, 256), gen).to(dev)
+    ant_obs = torch.randn(128, 105, generator=gen).to(dev)
+    got = k3(ant_policy, ant_obs)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = fused_mlp.policy_forward_plain(*fused_mlp._layers(ant_policy),
+                                              ant_obs)
+    check("K3 ant shape", got, want, 2e-5, 2e-5)
+    k3_ant_ms = time_ms(lambda: k3(ant_policy, ant_obs), 200)
+    print(f"K3 at ant's shape (105 -> 256 -> 256 -> 8 + 8, B=128): max |err| "
+          f"{max_err(got, want):.3g}, {k3_ant_ms:.4f} ms")
 
     # ---- 4b. K2 vs its plain version --------------------------------------
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
@@ -436,6 +469,108 @@ def main() -> int:
     print(f"K2 replaces 128 eager train_step calls on the same batches: "
           f"{k2_eager_ms:.1f} ms ({k2_eager_ms / 128:.3f} ms per step)")
 
+    k2_ant_errs, _, _ = k2_against_plain("ant shape: 256x2, B=512, K=4", 105,
+                                         8, 256, 512, 4, k2_pins)
+    sac_a, st_a, _, batches_a, e_next_a, e_new_a = k2_case(105, 8, 256, 512,
+                                                           128)
+    k2_ant_ms = time_ms(lambda: k2(sac_a, st_a, batches_a, e_next_a, e_new_a),
+                        3, 1)
+    k2_ant_bound = bound_ms(*k2_work(512, 105, 8, 256, 2, 128))
+    print(f"K2 at ant's shape (105 / 8, 256x2, B=512, K=128): {k2_ant_ms:.3f} "
+          f"ms per chain; bound {k2_ant_bound[0]:.4f} ms "
+          f"({k2_ant_bound[1]})")
+    del sac_a, st_a, batches_a, e_next_a, e_new_a
+
+    # ---- 4c. K4 vs its plain version --------------------------------------
+    import numpy as np
+
+    def k4_problem(nr, nv, B):
+        """A seeded instance shaped like the engine's: J random, M = I +
+        small SPD, W = M^-1 J^T, 70% of the rows active."""
+        rng = np.random.RandomState(nr)
+        J = rng.randn(B, nr, nv)
+        S = 0.2 * rng.randn(B, nv, nv)
+        W = np.linalg.solve(np.eye(nv)[None] + S @ S.transpose(0, 2, 1),
+                            J.transpose(0, 2, 1))
+        Rreg = rng.uniform(0.05, 0.5, (B, nr))
+        b = rng.randn(B, nr)
+        D = np.einsum("brv,bvr->br", J, W) + Rreg
+        active = torch.tensor(rng.rand(B, nr) < 0.7, device=dev)
+        f0 = np.abs(rng.randn(B, nr))
+        J, W, Rreg, b, D, f0 = (
+            torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in (J, W, Rreg, b, D, f0))
+        return J, W, Rreg, b, D, active, f0
+
+    k4_stats = {}
+    for nr, nv, B in ((6, 4, 4), (38, 6, 9), (116, 14, 128), (150, 23, 128)):
+        args = k4_problem(nr, nv, B)
+        got = k4(*args, K4_SWEEPS)
+        torch.cuda.synchronize()
+        want = pgs.pgs_solve_plain(*args, K4_SWEEPS)
+        check(f"K4 {nr}/{nv}/{B}", [got], [want], 2e-4, 1e-4)
+        if not bool((got[~args[5]] == 0.0).all()) or not bool(
+                (got >= 0.0).all()):
+            fail(f"K4 {nr}/{nv}/{B}: an inactive row is not zero, or a "
+                 f"force is negative")
+        if not torch.equal(got, k4(*args, K4_SWEEPS)):
+            fail(f"K4 {nr}/{nv}/{B}: two launches differ")
+        err = max_err([got], [want])
+        line = f"K4 nr={nr:3d} nv={nv:2d} B={B:3d}: max |err| {err:.3g}"
+        if B == 128:
+            ms = time_ms(lambda: k4(*args, K4_SWEEPS), 100)
+            plain_ms = time_ms(
+                lambda: pgs.pgs_solve_plain(*args, K4_SWEEPS), 2, 1)
+            bound = bound_ms(*k4_work(B, nv, nr, K4_SWEEPS))
+            k4_stats[(nv, nr)] = (err, ms, plain_ms, bound)
+            line += (f"; {ms:.4f} ms per launch, plain version "
+                     f"{plain_ms:.1f} ms, bound {bound[0]:.6f} ms "
+                     f"({bound[1]})")
+        print(line)
+
+    # ---- 4d. K4 inside the general engine ----------------------------------
+    def scaled_check(what, got, want):
+        """rtol 2e-4, atol 5e-3 on values divided by max(1, max |plain|)."""
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.isfinite(g).all():
+                fail(f"{what}: output {i} is not finite")
+            scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+            if not torch.allclose(g / scale, w / scale, rtol=2e-4, atol=5e-3):
+                fail(f"{what}: output {i} differs by "
+                     f"{float((g - w).abs().max()):.3g} (max |plain| "
+                     f"{float(w.abs().max()):.3g})")
+            if w.numel():
+                worst = max(worst, float((g - w).abs().max()) / scale)
+        return worst
+
+    flat = lambda s: [s[0], s[1], s[2], s[3], s[4][0], s[4][1]]
+    engine_ms = {}
+    for name in K4_SHAPES:
+        m = _model(name)
+        q, qd, ctrl, f0 = grounded_state(m, name, 128, 0, dev)
+        got = rb.forward(m, q, qd, ctrl, K4_SWEEPS, f0)
+        torch.cuda.synchronize()
+        want = rb.forward(m, q, qd, ctrl, K4_SWEEPS, f0,
+                          solve=pgs.pgs_solve_plain)
+        err_f = scaled_check(f"engine {name} forward", got, want)
+        got_s = rb.physics_step(m, q, qd, ctrl, K4_SWEEPS, f0)
+        torch.cuda.synchronize()
+        want_s = rb.physics_step(m, q, qd, ctrl, K4_SWEEPS, f0,
+                                 solve=pgs.pgs_solve_plain)
+        err_s = scaled_check(f"engine {name} control step", flat(got_s),
+                             flat(want_s))
+        active = int((want[4] > 0).sum())
+        engine_ms[name] = (
+            time_ms(lambda: rb.forward(m, q, qd, ctrl, K4_SWEEPS, f0), 20),
+            time_ms(lambda: rb.physics_step(m, q, qd, ctrl, K4_SWEEPS, f0),
+                    3, 1))
+        print(f"engine {name} B=128, kernel vs plain solve ({active} rows "
+              f"carry force): forward max scaled |err| {err_f:.3g}, control "
+              f"step ({m.frame_skip} x {m.integrator}) {err_s:.3g}; one "
+              f"forward {engine_ms[name][0]:.3f} ms, one control step "
+              f"{engine_ms[name][1]:.1f} ms (wall, by CUDA events)")
+
     # ---- 5. the slice on a small input: card vs CPU -----------------------
     from ilswiss_tpu_torch.envs import make_vec
     from ilswiss_tpu_torch.runtime.loop import (
@@ -517,10 +652,11 @@ def main() -> int:
                              grad_steps_per_iter=128)
     warmup_iters = max(1, config.min_steps_before_training // num_envs)
 
-    def drive(fused, train_iters):
+    def drive(env_name, fused, train_iters):
         """Warmup and `train_iters` training iterations from seed 0, with
         every launch count set to 0 just before and read just after."""
-        vec = make_vec("hopper", num_envs)
+        vec = make_vec(env_name, num_envs)
+        model = vec.env.model
         sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
                   net_size=256, num_hidden_layers=2, use_fused_act=True,
                   use_fused_chain=fused)
@@ -528,7 +664,7 @@ def main() -> int:
         runner = loop.init(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        k1.launches = k2.launches = k3.launches = 0
+        k1.launches = k2.launches = k3.launches = k4.launches = 0
         t0 = time.perf_counter()
         runner = loop.warmup(runner)
         torch.cuda.synchronize()
@@ -538,24 +674,31 @@ def main() -> int:
         t2 = time.perf_counter()
         launches = {"planar_forward": k1.launches,
                     "fused_sac_chain": k2.launches,
-                    "fused_policy_forward": k3.launches}
+                    "fused_policy_forward": k3.launches,
+                    "pgs_solve": k4.launches}
 
-        what = "main path" if fused else "eager path"
+        what = f"{env_name} {'main path' if fused else 'eager path'}"
         control_steps = warmup_iters + train_iters
-        want = {"planar_forward": 4 * hop.frame_skip * control_steps,
+        # 4 RK4 evaluations per substep, each one K1 launch on a planar
+        # model and one K4 launch on any other
+        evaluations = 4 * model.frame_skip * control_steps
+        planar = pd.planar_model(model) is not None
+        want = {"planar_forward": evaluations if planar else 0,
                 "fused_sac_chain": train_iters if fused else 0,
-                "fused_policy_forward": train_iters}
+                "fused_policy_forward": train_iters,
+                "pgs_solve": 0 if planar else evaluations}
         if launches != want:
-            fail(f"{what}: launches {launches}, expected {want} (K1 16 per "
-                 f"control step, K3 one per acting call, K2 one per fused "
-                 f"training iteration)")
+            fail(f"{what}: launches {launches}, expected {want} (K1 or K4 "
+                 f"{4 * model.frame_skip} per control step, K3 one per "
+                 f"acting call, K2 one per fused training iteration)")
         bad = [k for k, v in metrics.items() if not math.isfinite(v)]
         if bad or set(metrics) != set(fused_sac.METRIC_NAMES):
             fail(f"{what}: metrics {sorted(metrics)}, non-finite {bad}")
         obs = runner.env_state.obs
-        if tuple(obs.shape) != (num_envs, 11) \
+        if tuple(obs.shape) != (num_envs, vec.env.observation_size) \
                 or not torch.isfinite(obs).all():
-            fail(f"{what}: env observations are not finite [128, 11]")
+            fail(f"{what}: env observations are not finite "
+                 f"[{num_envs}, {vec.env.observation_size}]")
         if runner.total_env_steps != control_steps * num_envs \
                 or runner.replay.size != control_steps * num_envs:
             fail(f"{what}: env-step or replay counts are wrong")
@@ -575,38 +718,78 @@ def main() -> int:
         print(f"launches on the {what}: {json.dumps(launches)}")
         return launches
 
-    drive(fused=False, train_iters=2)
-    launches = drive(fused=True, train_iters=10)
+    drive("hopper", fused=False, train_iters=2)
+    hopper_launches = drive("hopper", fused=True, train_iters=10)
 
-    for name, (nv, nrow) in K4_SHAPES.items():
-        k4_bound = bound_ms(*k4_work(num_envs, nv, nrow, K4_SWEEPS))
-        print(f"K4 (still to be ported) {name}, B={num_envs}, nv={nv}, "
-              f"{nrow} rows, {K4_SWEEPS} sweeps: bound {k4_bound[0]:.6f} ms "
-              f"({k4_bound[1]})")
+    # ---- 7. SAC-Ant at full width: this slice's main path -----------------
+    ant_launches = drive("ant", fused=True, train_iters=10)
 
+    # ---- 8. humanoid: the engine and K4 at the widest model ----------------
+    vec = make_vec("humanoid", num_envs)
+    noise = Noise(0, dev)
+    state = vec.reset(noise.reset(vec.env, num_envs))
+    torch.cuda.synchronize()
+    k4.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, tr = vec.step(
+            state, noise.warmup_action((num_envs, vec.env.action_size)),
+            noise.reset(vec.env, num_envs))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if k4.launches != 4 * vec.env.model.frame_skip * 5:
+        fail(f"humanoid: K4 launched {k4.launches} times in 5 control steps")
+    for what, x in (("next_obs", tr.next_obs), ("obs", state.obs),
+                    ("reward", tr.reward)):
+        if not torch.isfinite(x).all():
+            fail(f"humanoid: {what} is not finite")
+    if tuple(state.obs.shape) != (num_envs, 348):
+        fail(f"humanoid: observations are {tuple(state.obs.shape)}")
+    print(f"humanoid, {num_envs} envs, 5 control steps of random actions: "
+          f"K4 launched {k4.launches} times, {seconds / 5 * 1e3:.1f} ms per "
+          f"control step ({5 * num_envs / seconds:.1f} env-steps/s), "
+          f"observations finite {list(state.obs.shape)}, mean reward "
+          f"{float(tr.reward.mean()):.3f}")
+
+    ant_k4 = k4_stats[K4_SHAPES["ant"]]
     kernels = [
         {"name": "planar_forward", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/planar_forward.cu",
          "replaces": "ilswiss_tpu/ops/planar_dynamics.py:694",
-         "launches": launches["planar_forward"],
+         "launches": hopper_launches["planar_forward"],
          "max_abs_err": hopper_err, "ms": k1_times[128],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
-         "launches": launches["fused_sac_chain"],
+         "launches": ant_launches["fused_sac_chain"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "library_ms": None},
         {"name": "fused_policy_forward", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "ilswiss_tpu/ops/fused_mlp.py:34",
-         "launches": launches["fused_policy_forward"],
+         "launches": ant_launches["fused_policy_forward"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": k3_library_ms},
+        {"name": "pgs_solve", "route": "cuda",
+         "source": "ilswiss_tpu_torch/csrc/pgs.cu",
+         "replaces": "ilswiss_tpu/ops/pgs_pallas.py:80",
+         "launches": ant_launches["pgs_solve"],
+         "max_abs_err": ant_k4[0], "ms": ant_k4[1], "plain_ms": ant_k4[2],
+         "bound_ms": ant_k4[3][0], "bound_by": ant_k4[3][1],
+         "library_ms": None},
     ]
+    # K1's count is the hopper main path's, K4's the ant main path's; K2 and
+    # K3 run on both, 10 launches each, and the line carries the ant path's
+    for entry, name in zip(kernels, ("planar_forward", "fused_sac_chain",
+                                     "fused_policy_forward", "pgs_solve")):
+        entry["launches_by_path"] = {"hopper": hopper_launches[name],
+                                     "ant": ant_launches[name]}
+        if hopper_launches[name] + ant_launches[name] == 0:
+            fail(f"{name} was launched on no main path")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Env registry and factory (counterpart: ilswiss_tpu/envs/__init__.py).
 
 `make(name)` returns a static `Environment`, `make_vec(name, num_envs)`
-the lockstep vectorized env.  Only the planar locomotion models are
-ported so far.
+the lockstep vectorized env.  The MuJoCo locomotion models are ported
+(all but walker and halfcheetah); the classic-control and goal envs are
+not.
 """
 
 from __future__ import annotations

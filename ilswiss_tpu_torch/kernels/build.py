@@ -17,7 +17,10 @@ PyTorch version, whose elementwise operations are unfused, so the two
 stay comparable through the 15 Gauss-Seidel sweeps.  The fused SAC chain
 keeps contraction on: its work is matrix products, which accumulate with
 fused multiply-adds both here and in the library products of its plain
-version, so `-fmad=false` would make the two differ more, not less.
+version, so `-fmad=false` would make the two differ more, not less.  The
+Gauss-Seidel solve (`pgs`) keeps it on as well: its dot products are reduced
+across a warp in another order than the plain version's sums whatever the
+flag, and the tolerance it is held to covers both.
 `build_all` starts one `nvcc` per source, all at once.
 """
 
@@ -34,7 +37,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("planar_forward", "fused_mlp", "fused_sac")
+SOURCES = ("planar_forward", "fused_mlp", "fused_sac", "pgs")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 EXTRA_FLAGS = {"planar_forward": ("-fmad=false",)}

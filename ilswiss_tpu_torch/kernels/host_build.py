@@ -1,11 +1,12 @@
-"""Compile a cooperative kernel's CUDA source for the CPU, to rehearse its
+"""Compile a kernel's CUDA source for the CPU, to rehearse its
 logic where there is no GPU and no `nvcc` (no JAX counterpart: Pallas has
 an interpret mode).
 
 `build_host("fused_sac", "SacArgs")` copies `csrc/fused_sac.cu`, turns each
 `__shared__ float name[n];` into a per-block buffer, appends a
 `cudaLaunchCooperativeKernel` that runs the kernel on one `std::thread` per
-CUDA thread, and compiles the result with `g++ -std=c++20` against the
+CUDA thread (the shim's `cudaLaunchKernel` goes the same way, so
+`build_host("pgs", "PgsArgs")` works alike), and compiles the result with `g++ -std=c++20` against the
 headers in `host_shim/` into `build/host/`.  The library has the source's
 own C interface, so `ctypes` loads it like the real one and the wrapper's
 launch code can drive it with CPU tensors.  It is for small sizes (a few
@@ -61,8 +62,8 @@ cudaError_t cudaLaunchCooperativeKernel(void* f, dim3 grid, dim3 block,
 
 
 def build_host(name: str, args_struct: str) -> Path:
-    """The CPU library of `csrc/<name>.cu`, whose cooperative kernel takes
-    one `args_struct` by value.  Raises if `g++` is missing or fails."""
+    """The CPU library of `csrc/<name>.cu`, whose one kernel takes one
+    `args_struct` by value.  Raises if `g++` is missing or fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ was not found")

@@ -60,6 +60,11 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int,
 // defined by host_build.py's trailer, which knows the kernel's argument type
 cudaError_t cudaLaunchCooperativeKernel(void* f, dim3 grid, dim3 block,
                                         void** args, size_t, cudaStream_t);
+// a plain launch runs the same way; it just never meets the grid barrier
+inline cudaError_t cudaLaunchKernel(void* f, dim3 grid, dim3 block,
+                                    void** args, size_t n, cudaStream_t s) {
+  return cudaLaunchCooperativeKernel(f, grid, block, args, n, s);
+}
 
 struct HostBlock {
   std::unique_ptr<std::barrier<>> bar;
@@ -80,6 +85,9 @@ inline float* host_shared(const char* name, size_t n) {
   return reinterpret_cast<float*>(buf.data());
 }
 inline void __syncthreads() { host_block->bar->arrive_and_wait(); }
+inline void __syncwarp() {
+  host_block->warp_bar[threadIdx.x / 32]->arrive_and_wait();
+}
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   host_block->warp_buf[w][l] = v;

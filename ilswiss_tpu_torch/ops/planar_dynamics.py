@@ -34,7 +34,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ilswiss_tpu_torch.ops.rigid_body import RigidModel, _impedance, _kb
+from ilswiss_tpu_torch.ops.rigid_body import (
+    RigidModel, _impedance, _kb, physics_step,
+)
 
 
 # --------------------------------------------------------------------------
@@ -803,10 +805,11 @@ def planar_physics_step(m: RigidModel, q, qd, ctrl, iters: int = 15,
 
 def physics_step_auto(m: RigidModel, q, qd, ctrl, iters: int = 15,
                       f0=None):
-    """The engine's physics_step with the planar path.  Only planar models
-    are ported; the general engine comes with the non-planar models."""
-    if planar_model(m) is None:
-        raise NotImplementedError(
-            "the general rigid-body engine is not ported yet; only planar "
-            "models (hopper, walker, halfcheetah, invertedpendulum) step")
-    return planar_physics_step(m, q, qd, ctrl, iters=iters, f0=f0)
+    """The engine's `physics_step` with the planar path: planar models go
+    through `planar_physics_step` (kernel K1 per forward evaluation on CUDA
+    tensors), every other model through the general engine of
+    ops/rigid_body.py (kernel K4 per forward evaluation).  Same batched
+    arguments and return values either way."""
+    if planar_model(m) is not None:
+        return planar_physics_step(m, q, qd, ctrl, iters=iters, f0=f0)
+    return physics_step(m, q, qd, ctrl, iters=iters, f0=f0)

@@ -160,8 +160,9 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 
 def env_state_from_jax(jstate, device) -> EnvState:
-    """A batched locomotion EnvState: internal (q, qd, warm-start forces),
-    obs and t; the JAX per-env keys have no counterpart and are dropped."""
+    """A batched locomotion EnvState: internal (q, qd, warm-start row
+    forces: [B, 38] for hopper, [B, 116] for ant), obs and t; the JAX
+    per-env keys have no counterpart and are dropped."""
     return EnvState(
         internal=tuple(_tensor(x, device, torch.float32)
                        for x in jstate.internal),

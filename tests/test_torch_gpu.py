@@ -1,6 +1,6 @@
-"""Kernels K1, K2 and K3 against their plain PyTorch versions on a CUDA
+"""Kernels K1, K2, K3 and K4 against their plain PyTorch versions on a CUDA
 card (ilswiss_tpu_torch/csrc/planar_forward.cu, csrc/fused_sac.cu,
-csrc/fused_mlp.cu).
+csrc/fused_mlp.cu, csrc/pgs.cu).
 
 Every test here is marked `gpu` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine without it:
@@ -12,7 +12,9 @@ rtol 2e-4, atol 5e-3 per forward evaluation and control step (the
 planar pin of tests/test_planar_dynamics.py:97-98); K3 2e-5 (the pin of
 tests/test_pallas_ops.py); K2 the pins of tests/test_fused_sac.py:91-121
 (parameters and targets rtol 2e-4, atol 2e-5; log alpha 1e-5, 1e-6; mu
-2e-4, 2e-6; nu 2e-3, 1e-8; metrics 5e-4, 5e-5).
+2e-4, 2e-6; nu 2e-3, 1e-8; metrics 5e-4, 5e-5); K4 rtol 2e-4, atol 1e-4
+(the pin of tests/test_pgs_pallas.py:50-51), and inside the engine rtol
+2e-4, atol 5e-3 on values divided by max(1, max |plain|).
 """
 
 import numpy as np
@@ -22,8 +24,9 @@ import torch
 from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
 from ilswiss_tpu_torch.envs.locomotion import _model
 from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
-from ilswiss_tpu_torch.ops import fused_mlp, fused_sac
+from ilswiss_tpu_torch.ops import fused_mlp, fused_sac, pgs
 from ilswiss_tpu_torch.ops import planar_dynamics as pd
+from ilswiss_tpu_torch.ops import rigid_body as rb
 
 F32 = dict(rtol=2e-4, atol=5e-3)
 
@@ -197,3 +200,93 @@ def test_fused_sac_kernel_rejects_bad_inputs(cuda):
         fused_sac.fused_sac_chain(sac, sac.init(0), batches, eps_next.cpu(),
                                   eps_new)
     assert fused_sac.fused_sac_chain.launches == before
+
+
+def _pgs_problem(nr, nv, B, device):
+    """A seeded instance shaped like the engine's: J random, M = I + small
+    SPD, W = M^-1 J^T, 70% of the rows active."""
+    rng = np.random.RandomState(nr)
+    J = rng.randn(B, nr, nv)
+    S = 0.2 * rng.randn(B, nv, nv)
+    W = np.linalg.solve(np.eye(nv)[None] + S @ S.transpose(0, 2, 1),
+                        J.transpose(0, 2, 1))
+    Rreg = rng.uniform(0.05, 0.5, (B, nr))
+    b = rng.randn(B, nr)
+    D = np.einsum("brv,bvr->br", J, W) + Rreg
+    active = torch.tensor(rng.rand(B, nr) < 0.7, device=device)
+    f0 = np.abs(rng.randn(B, nr))
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    return f(J), f(W), f(Rreg), f(b), f(D), active, f(f0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nr,nv,B", [(6, 4, 4), (38, 6, 9), (116, 14, 128),
+                                     (150, 23, 128)])
+def test_pgs_kernel_matches_plain(nr, nv, B, cuda):
+    """K4: 15 sweeps against the plain version; inactive rows exactly zero,
+    forces >= 0; W read through column-major strides gives the same bits."""
+    args = _pgs_problem(nr, nv, B, cuda)
+    before = pgs.pgs_solve.launches
+    got = pgs.pgs_solve(*args, 15)
+    torch.cuda.synchronize()
+    assert pgs.pgs_solve.launches == before + 1
+    want = pgs.pgs_solve_plain(*args, 15)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-4)
+    assert bool((got[~args[5]] == 0.0).all()) and bool((got >= 0.0).all())
+    W_cols = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(got, pgs.pgs_solve(args[0], W_cols, *args[2:], 15))
+
+
+@pytest.mark.gpu
+def test_pgs_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits: K4 has no
+    atomics and a fixed reduction order."""
+    args = _pgs_problem(116, 14, 128, cuda)
+    assert torch.equal(pgs.pgs_solve(*args, 15), pgs.pgs_solve(*args, 15))
+
+
+@pytest.mark.gpu
+def test_pgs_kernel_rejects_bad_inputs(cuda):
+    J, W, Rreg, b, D, active, f0 = _pgs_problem(6, 4, 4, cuda)
+    wide = _pgs_problem(6, pgs.MAX_NV + 1, 2, cuda)
+    tall = _pgs_problem(pgs.MAX_ROWS + 1, 3, 1, cuda)
+    before = pgs.pgs_solve.launches
+    for bad in ((J.double(), W.double(), Rreg.double(), b.double(),
+                 D.double(), active, f0.double()),
+                wide, tall,
+                (J, W, Rreg, b, D, active.float(), f0),
+                (J, W, Rreg, b, D, active, f0.cpu())):
+        with pytest.raises(ValueError):
+            pgs.pgs_solve(*bad, 15)
+    assert pgs.pgs_solve.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ant", "humanoid", "swimmer",
+                                  "inverteddoublependulum"])
+def test_engine_with_kernel_matches_plain_solve(name, cuda):
+    """K4 inside the general engine: one control step at a ragged B = 100
+    with the kernel against the same with the plain solve named."""
+    m = _model(name)
+    rng = np.random.RandomState(7)
+    B = 100
+    q = m.qpos0 + 0.1 * rng.randn(B, m.nq)
+    if name in ("ant", "humanoid"):
+        q[:, 2] = (0.45 if name == "ant" else 1.25) + 0.1 * rng.rand(B)
+    qd = 0.5 * rng.randn(B, m.nv)
+    ctrl = np.clip(rng.randn(B, m.nu), -1, 1)
+    f0 = 0.2 * np.abs(rng.randn(B, m.nrow))
+    q, qd, ctrl, f0 = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                       for x in (q, qd, ctrl, f0))
+    evaluations = 4 * m.frame_skip
+    before = pgs.pgs_solve.launches
+    got = rb.physics_step(m, q, qd, ctrl, iters=15, f0=f0)
+    torch.cuda.synchronize()
+    assert pgs.pgs_solve.launches == before + evaluations
+    want = rb.physics_step(m, q, qd, ctrl, iters=15, f0=f0,
+                           solve=pgs.pgs_solve_plain)
+    assert pgs.pgs_solve.launches == before + evaluations
+    for g, w in zip(got[:4], want[:4]):
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g / scale, w / scale, rtol=2e-4,
+                                   atol=5e-3)

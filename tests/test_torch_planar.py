@@ -65,13 +65,22 @@ def test_forward_plain_matches_jax_f64(name, x64):
 
 
 def test_nonplanar_models_are_rejected():
+    """The planar path refuses every model that is not a planar chain;
+    `physics_step_auto` hands those to the general engine instead."""
     from ilswiss_tpu_torch.envs._locomotion_params import PARAMS
     from ilswiss_tpu_torch.ops.rigid_body import RigidModel
-    for name in ("ant", "humanoid", "swimmer"):
+    for name in ("ant", "humanoid", "swimmer", "inverteddoublependulum"):
         m = RigidModel(PARAMS[name])
         assert pd.planar_model(m) is None
-        with pytest.raises(NotImplementedError):
-            pd.physics_step_auto(m, None, None, None)
+        with pytest.raises(ValueError):
+            pd.planar_physics_step(m, None, None, None)
+    m = RigidModel(PARAMS["swimmer"])
+    before = pd.planar_forward.launches
+    q = torch.as_tensor(m.qpos0, dtype=torch.float32)[None]
+    out = pd.physics_step_auto(m, q, torch.zeros(1, m.nv),
+                               torch.zeros(1, m.nu))
+    assert tuple(out[0].shape) == (1, m.nq) and torch.isfinite(out[0]).all()
+    assert pd.planar_forward.launches == before
 
 
 def test_control_step_plain_matches_jax_integrator():
