@@ -12,21 +12,35 @@ exits non-zero on any failure; no phase catches its own error.
      into build/kernels/, one nvcc each, in parallel, printing `-Xptxas -v`;
   3. K1 against its plain PyTorch version on the card: hopper, walker,
      halfcheetah (Euler, damped) and invertedpendulum (no contacts), at
-     B = 128 and a ragged B = 100, one forward evaluation and one control
-     step each at rtol 2e-4, atol 5e-3; times at B = 128 and B = 1024;
+     B = 128 and a ragged B = 100, one control step (one launch of the
+     control-step mode against `_control_step` over `_forward_math`) and
+     one forward evaluation (the one-evaluation mode against
+     `_forward_math`) each at rtol 2e-4, atol 5e-3, and two launches
+     bit-equal; times per control step at B = 128 and B = 1024, and per
+     evaluation at B = 128;
   4. K3 against its plain version at B = 128, 11 -> 256 -> 256 -> 3 + 3,
      rtol = atol = 2e-5; times, and a three-addmm PyTorch chain as the
-     yardstick; the same check at ant's shape (105 -> 256 -> 256 -> 8 + 8);
-  4b. K2 against its plain version from the same seeded state and inputs:
-     hidden 32, B = 32, K = 3 and full width (11 / 3, 256 x 2, B = 512) at
-     K = 4, at the pins of tests/test_fused_sac.py (parameters and targets
-     rtol 2e-4, atol 2e-5; log alpha 1e-5, 1e-6; mu 2e-4, 2e-6; nu 2e-3,
-     1e-8; metrics 5e-4, 5e-5; counts equal); full width at K = 128: every
-     output finite and the drift printed, gated at K2_DRIFT (see there),
-     with the plain version in float64 as the yardstick;
-     times at K = 128 of the kernel, the plain version and 128 eager
-     `train_step` calls; the pins again at ant's shape (105 / 8, 256 x 2,
-     B = 512, K = 4) and the kernel's time there at K = 128;
+     yardstick; the same check at ant's shape (105 -> 256 -> 256 -> 8 + 8)
+     and at humanoid's (348 -> 256 -> 256 -> 17 + 17), with times;
+  4b. K2 against its plain version in the same mode (bf16 products, the
+     default, and float32 products) from the same seeded state and inputs:
+     hidden 32, B = 32, K = 3, and full width (256 x 2, B = 512, K = 4) at
+     hopper's (11 / 3), ant's (105 / 8) and humanoid's (348 / 17) shapes;
+     at the pins of `K2_PINS` in ilswiss_tpu_torch/testing.py (float32:
+     those of tests/test_fused_sac.py, parameters and targets rtol 2e-4,
+     atol 2e-5; log alpha 1e-5, 1e-6; mu 2e-4, 2e-6; nu 2e-3, 1e-8;
+     metrics 5e-4, 5e-5; bf16: the same but mu 2e-2, 2e-5 and nu 1e-2,
+     1e-8), counts equal; at full width in bf16 mode the parameters, mu
+     and nu under `bf16_gate` instead (per group at most a third as many
+     elements outside the pins as the plain float32 mode has against the
+     plain bf16 mode, the control, on the same state and inputs), and the
+     kernel's float32 mode, held to the plain bf16 mode the same way, must
+     fail that gate; full width at K = 128 in each mode:
+     every output finite and the drift from the plain version in the same
+     mode printed, gated at K2_DRIFT (see there), with the plain version in
+     float64 as the yardstick of the float32 mode; two launches bit-equal
+     in each mode; times per mode at K = 128 at hopper's and ant's shapes,
+     of the plain version and of 128 eager `train_step` calls;
   4c. K4 against its plain version on seeded random problems shaped like the
      engine's (nr / nv / B = 6/4/4, 38/6/9, 116/14/128, 150/23/128, 15
      sweeps) at rtol 2e-4, atol 1e-4; rows that are not active exactly zero,
@@ -40,24 +54,26 @@ exits non-zero on any failure; no phase catches its own error.
   5. the slice on a small input (4 envs, 32-wide nets): warmup and two
      training iterations on the card and on the CPU, from the same seed
      and the same draws, agree at rtol 2e-4, atol 5e-3; once with eager
-     gradient steps and once with the fused chain (K2 on the card, its
-     plain version on the CPU);
+     gradient steps and once with the fused chain in float32 mode (K2 on
+     the card, its plain version on the CPU);
   6. SAC-Hopper through `make_vec`, `SAC` and `OffPolicyLoop` at 128 envs,
      batch 512, 256 x 2 nets, a 1M ring and 128 gradient steps per
      iteration, twice: the eager path (`use_fused_act=True`) for warmup and
      2 training iterations, then the main path (`use_fused_act=True,
      use_fused_chain=True`) for warmup and one epoch of 10 iterations.
      Before each, every launch counter is set to 0, and read just after;
-     each kernel must have launched exactly as often as the path calls it,
-     and every metric must be finite;
+     each kernel must have launched exactly as often as the path calls it
+     (K1 once per control step), and every metric must be finite;
   7. SAC-Ant through the same entry points at full width (128 envs, batch
      512, 256 x 2 nets, a 1M ring, K = 128, `min_steps_before_training`
      5000 as exp_specs/sac/sac_ant.yaml), the main path only: warmup and 10
      training iterations, with K4 = 20 launches per control step, K2 = 10,
      K3 = 10 and K1 = 0;
-  8. humanoid, whose widths K2 and K3 do not take: `make_vec("humanoid",
-     128)` stepped 5 control steps with random actions, K4 = 100 launches,
-     finite observations [128, 348].
+  8. SAC-Humanoid through the same entry points on the main path (128
+     envs, 256 x 2 nets, batch 512, a 1M ring, K = 128, as
+     exp_specs/sac/sac_humanoid.yaml), cut in length to
+     `min_steps_before_training` 1024: 8 warmup and 3 training iterations,
+     with K4 = 20 launches per control step, K2 = 3, K3 = 3 and K1 = 0.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -75,8 +91,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -101,10 +118,24 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS
+             ) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_step_work(pm, B: int, iters: int) -> tuple[float, float]:
+    """(bytes, flops) of one K1 control step of B envs: q, qd, ctrl and the
+    warm-start forces read once, q, qd, qfrc_con, f, q_ev and qd_ev written
+    once; the flops of its evaluations (4 per RK4 substep, 1 damped one
+    per Euler substep) and of the integrator's combinations."""
+    nv, nrow, nu = pm.nv, pm.nrow, len(pm.act_dof)
+    euler = pm.integrator == "euler"
+    evals = pm.frame_skip * (1 if euler else 4)
+    flops = evals * k1_work(pm, B, iters, euler)[1] \
+        + pm.frame_skip * B * nv * (4 if euler else 30)
+    return 4 * B * ((2 * nv + nu + nrow) + (5 * nv + nrow)), flops
 
 
 def k1_work(pm, B: int, iters: int, damped: bool) -> tuple[float, float]:
@@ -128,13 +159,14 @@ def k1_work(pm, B: int, iters: int, damped: bool) -> tuple[float, float]:
 
 
 def k2_work(B: int, O: int, A: int, H: int, L: int, K: int
-            ) -> tuple[float, float]:
-    """(bytes, flops) of one K2 chain of K steps, counted from the products
-    of one step (two flops per multiply-add): the policy forward on obs and
-    on next_obs; three twin-critic forwards (targets, critics, updated
-    critics); the critics' weight and input gradients; the input gradient
-    of the updated critics down to the action columns; the policy's weight
-    and input gradients; and about 12 flops per parameter for Adam and
+            ) -> tuple[float, float, float]:
+    """(bytes, product flops, elementwise flops) of one K2 chain of K
+    steps, counted from the products of one step (two flops per
+    multiply-add): the policy forward on obs and on next_obs; three
+    twin-critic forwards (targets, critics, updated critics); the critics'
+    weight and input gradients; the input gradient of the updated critics
+    down to the action columns; the policy's weight and input gradients;
+    and, elementwise in float32, about 12 flops per parameter for Adam and
     Polyak.  Bytes: the state (parameters, targets, moments, alpha) read
     once and written once, the K streamed batches and noise read once, the
     metrics written once."""
@@ -149,10 +181,20 @@ def k2_work(B: int, O: int, A: int, H: int, L: int, K: int
                 + policy_fwd + 2 * A * H + trunk)
     n_policy = O * H + H + (L - 1) * (H * H + H) + 2 * (A * H + A)
     n_critics = 2 * (D * H + H + (L - 1) * (H * H + H) + H + 1)
-    flops = K * (2 * macs + 12 * (n_policy + 2 * n_critics))
     state = 3 * n_policy + 4 * n_critics + 3
     nbytes = 4 * (2 * state + K * B * (2 * O + 3 * A + 2) + K * 8)
-    return nbytes, flops
+    return nbytes, K * 2 * macs, K * 12 * (n_policy + 2 * n_critics)
+
+
+def k2_bound(B, O, A, H, L, K, bf16: bool) -> tuple[float, str]:
+    """K2's bound in one mode: the products' operations over the peak of
+    their type (bf16 tensor cores, or float32), plus the elementwise
+    float32 operations over the float32 peak, against the bytes."""
+    nbytes, prod, elem = k2_work(B, O, A, H, L, K)
+    t_ops = (prod / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+             + elem / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # (nv, nrow) of the models whose K4 times are taken, as
@@ -174,8 +216,9 @@ def k4_work(B: int, nv: int, nrow: int, iters: int) -> tuple[float, float]:
 
 
 # Gate on K2 against its plain version after 128 steps at full width.  At
-# K = 4 the two agree at the pins.  Over 128 steps they drift apart by
-# rounding alone: Adam divides each gradient by its own running size, so a
+# K = 4 the two agree at the pins (the bf16 mode at full width under
+# `bf16_gate`, ilswiss_tpu_torch/testing.py).  Over 128 steps they drift
+# apart by rounding alone: Adam divides each gradient by its own running size, so a
 # last-bit difference in a small gradient becomes a difference of up to
 # lr in one step of one parameter, and ReLU and min() turn such differences
 # into different branches later.  A parameter can move at most K * lr =
@@ -227,6 +270,9 @@ def main() -> int:
     from ilswiss_tpu_torch.ops import fused_mlp, fused_sac, pgs
     from ilswiss_tpu_torch.ops import planar_dynamics as pd
     from ilswiss_tpu_torch.ops import rigid_body as rb
+    from ilswiss_tpu_torch.testing import (
+        GATED, K2_PINS, bf16_gate, float32_chain, k2_groups,
+    )
     k1 = pd.planar_forward
     k2 = fused_sac.fused_sac_chain
     k3 = fused_mlp.fused_gaussian_policy_forward
@@ -234,6 +280,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
 
     # ---- 3. K1 vs its plain version --------------------------------------
+    import numpy as np
+
     def k1_inputs(m, B):
         q = torch.tensor(m.qpos0, dtype=torch.float32)[:, None] \
             + 0.1 * torch.randn(m.nq, B, generator=gen)
@@ -267,6 +315,8 @@ def main() -> int:
                      f"(max |plain| {float(w.abs().max()):.3g})")
 
     iters = 15
+    k1s = pd.planar_control_step
+    flat = lambda s: [s[0], s[1], s[2], s[3], s[4][0], s[4][1]]
     hopper_err = None
     for name in ("hopper", "walker", "halfcheetah", "invertedpendulum"):
         m = _model(name)
@@ -279,35 +329,55 @@ def main() -> int:
             want = plain_fwd(pm, iters)(q, qd, ctrl, f0, damped)
             check(f"K1 {name} B={B} forward", got, want, 2e-4, 5e-3)
             err_f = max_err(got, want)
-            got_s = pd._control_step(pm, kernel_fwd(pm, iters),
-                                     q, qd, ctrl, f0)
+            got_s = k1s(pm, q, qd, ctrl, f0, iters)
             torch.cuda.synchronize()
             want_s = pd._control_step(pm, plain_fwd(pm, iters),
                                       q, qd, ctrl, f0)
-            flat = lambda s: [s[0], s[1], s[2], s[3], s[4][0], s[4][1]]
             check(f"K1 {name} B={B} control step", flat(got_s),
                   flat(want_s), 2e-4, 5e-3)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    flat(got_s), flat(k1s(pm, q, qd, ctrl, f0, iters)))):
+                fail(f"K1 {name} B={B}: two launches differ")
             err_s = max_err(flat(got_s), flat(want_s))
             print(f"K1 {name:16s} B={B:4d}: forward max |err| {err_f:.3g}, "
-                  f"control step ({pm.frame_skip} x {pm.integrator}) "
-                  f"max |err| {err_s:.3g}")
+                  f"control step ({pm.frame_skip} x {pm.integrator}, one "
+                  f"launch) max |err| {err_s:.3g}; two launches bit-equal")
             if name == "hopper" and B == 128:
-                hopper_err = err_f
+                hopper_err = err_s
 
     hop = pd.planar_model(_model("hopper"))
     k1_times = {}
     for B in (128, 1024):
         q, qd, ctrl, f0 = k1_inputs(_model("hopper"), B)
-        k1_times[B] = time_ms(
-            lambda: k1(hop, q, qd, ctrl, f0, iters, False), 200)
+        k1_times[B] = time_ms(lambda: k1s(hop, q, qd, ctrl, f0, iters), 50)
     q, qd, ctrl, f0 = k1_inputs(_model("hopper"), 128)
-    k1_plain_ms = time_ms(
-        lambda: pd._forward_math(hop, q, qd, ctrl, f0, iters, None), 5, 1)
-    k1_bound = bound_ms(*k1_work(hop, 128, iters, False))
-    print(f"K1 hopper: {k1_times[128]:.4f} ms per launch at B=128, "
-          f"{k1_times[1024]:.4f} ms at B=1024; plain version "
-          f"{k1_plain_ms:.2f} ms at B=128; bound {k1_bound[0]:.6f} ms "
-          f"({k1_bound[1]}) at B=128")
+    k1_eval_ms = time_ms(lambda: k1(hop, q, qd, ctrl, f0, iters, False), 200)
+    k1_plain_ms = time_ms(lambda: pd._control_step(
+        hop, plain_fwd(hop, iters), q, qd, ctrl, f0), 2, 1)
+    k1_bound = bound_ms(*k1_step_work(hop, 128, iters))
+    # the PGS sweep's share, and the other layout it could have had: K1
+    # keeps one thread per env with u in registers; K4 one warp per env,
+    # lane v holding u[v], on hopper's row shape (38 rows, nv 6)
+    k1_no_pgs_ms = time_ms(lambda: k1s(hop, q, qd, ctrl, f0, 0), 50)
+    rng_l = np.random.RandomState(38)
+    J = torch.tensor(rng_l.randn(128, 38, 6), dtype=torch.float32, device=dev)
+    W = torch.tensor(rng_l.randn(128, 6, 38), dtype=torch.float32,
+                     device=dev) * 0.1
+    row = lambda: torch.tensor(rng_l.uniform(0.1, 1.0, (128, 38)),
+                               dtype=torch.float32, device=dev)
+    pgs_args = (J, W, row(), row(), row() + 1.0,
+                torch.ones(128, 38, dtype=torch.bool, device=dev), row())
+    k4_hopper_rows_ms = time_ms(lambda: k4(*pgs_args, 15 * 16), 20)
+    print(f"K1 hopper control step (16 evaluations, one launch): "
+          f"{k1_times[128]:.4f} ms at B=128, {k1_times[1024]:.4f} ms at "
+          f"B=1024; one evaluation {k1_eval_ms:.4f} ms at B=128; plain "
+          f"control step {k1_plain_ms:.2f} ms at B=128; bound "
+          f"{k1_bound[0]:.6f} ms ({k1_bound[1]}) per control step at B=128")
+    print(f"K1 PGS layouts, hopper rows (38 x nv 6), B=128, the 16 x 15 "
+          f"sweeps of one control step: one thread per env (K1 with 15 "
+          f"sweeps less K1 with none) {k1_times[128] - k1_no_pgs_ms:.4f} ms; "
+          f"one warp per env (K4, 240 sweeps in one launch) "
+          f"{k4_hopper_rows_ms:.4f} ms")
 
     # ---- 4. K3 vs its plain version --------------------------------------
     from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
@@ -357,6 +427,20 @@ def main() -> int:
     k3_ant_ms = time_ms(lambda: k3(ant_policy, ant_obs), 200)
     print(f"K3 at ant's shape (105 -> 256 -> 256 -> 8 + 8, B=128): max |err| "
           f"{max_err(got, want):.3g}, {k3_ant_ms:.4f} ms")
+    hum_policy = TanhGaussianPolicy(348, 17, (256, 256), gen).to(dev)
+    hum_obs = torch.randn(128, 348, generator=gen).to(dev)
+    got = k3(hum_policy, hum_obs)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        hum_layers = fused_mlp._layers(hum_policy)
+        want = fused_mlp.policy_forward_plain(*hum_layers, hum_obs)
+        check("K3 humanoid shape", got, want, 2e-5, 2e-5)
+        k3_hum_ms = time_ms(lambda: k3(hum_policy, hum_obs), 200)
+        k3_hum_plain_ms = time_ms(
+            lambda: fused_mlp.policy_forward_plain(*hum_layers, hum_obs), 200)
+    print(f"K3 at humanoid's shape (348 -> 256 -> 256 -> 17 + 17, B=128): "
+          f"max |err| {max_err(got, want):.3g}, {k3_hum_ms:.4f} ms; plain "
+          f"version {k3_hum_plain_ms:.4f} ms")
 
     # ---- 4b. K2 vs its plain version --------------------------------------
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
@@ -376,60 +460,99 @@ def main() -> int:
         return (sac_, sac_.init(1), sac_.init(1), batches,
                 draw(K, B, n_act), draw(K, B, n_act))
 
-    def k2_groups(st):
-        opts = (st.policy_opt, st.qf_opt, st.alpha_opt)
-        return {
-            "params": [p.detach() for m in (st.policy, st.qf, st.target_qf)
-                       for p in m.parameters()],
-            "log_alpha": [st.log_alpha.detach()],
-            "mu": [m for o in opts for m in o.mu],
-            "nu": [v for o in opts for v in o.nu]}
+    bf16, f32 = torch.bfloat16, torch.float32
+    mode_name = {bf16: "bf16", f32: "float32"}
+    plain_chain = fused_sac.fused_sac_chain_plain
 
-    k2_pins = {"params": (2e-4, 2e-5), "log_alpha": (1e-5, 1e-6),
-               "mu": (2e-4, 2e-6), "nu": (2e-3, 1e-8),
-               "metrics": (5e-4, 5e-5)}
-
-    def k2_against_plain(what, n_obs, n_act, width, B, K, pins):
-        """Max |kernel - plain| per group; held to `pins` where given, and
-        every kernel output finite either way."""
-        sac_, st_k, st_p, batches, e_next, e_new = k2_case(n_obs, n_act,
-                                                           width, B, K)
-        st_k, m_k = k2(sac_, st_k, batches, e_next, e_new)
-        torch.cuda.synchronize()
-        st_p, m_p = fused_sac.fused_sac_chain_plain(sac_, st_p, batches,
-                                                    e_next, e_new)
-        got, want = k2_groups(st_k), k2_groups(st_p)
-        got["metrics"] = [m_k[n] for n in fused_sac.METRIC_NAMES]
-        want["metrics"] = [m_p[n] for n in fused_sac.METRIC_NAMES]
+    def k2_modes(what, n_obs, n_act, width, B, K):
+        """K2 against its plain version in each mode, from one seeded state
+        and one set of inputs: every group at the mode's pins, but in bf16
+        mode at widths over 32 the parameters, mu and nu under
+        `bf16_gate`, with the plain float32 mode as its control; and the
+        float32 mode held against the plain bf16 mode the same way must
+        fail that gate.  Returns max |kernel - plain| per mode and group."""
+        sac_, _, _, batches, e_next, e_new = k2_case(n_obs, n_act, width,
+                                                     B, K)
+        runs = {}
+        for who, chain in (("kernel", k2), ("plain", plain_chain)):
+            for dt in (bf16, f32):
+                st, m = chain(sac_, sac_.init(1), batches, e_next, e_new, dt)
+                torch.cuda.synchronize()
+                if any(o.count != K for o in (st.policy_opt, st.qf_opt,
+                                              st.alpha_opt)):
+                    fail(f"K2 {what}: Adam counts are not {K}")
+                runs[who, dt] = k2_groups(st, m)
+        gated = width > 32
         errs = {}
+        for dt in (bf16, f32):
+            got, want = runs["kernel", dt], runs["plain", dt]
+            for name in got:
+                label = f"K2 {mode_name[dt]} {what} {name}"
+                if dt == bf16 and gated and name in GATED:
+                    if not all(bool(torch.isfinite(g).all())
+                               for g in got[name]):
+                        fail(f"{label}: not finite")
+                else:
+                    check(label, got[name], want[name], *K2_PINS[dt][name])
+            errs[dt] = {n: max_err(got[n], want[n]) for n in got}
+            print(f"K2 {mode_name[dt]} {what}: max |kernel - plain| "
+                  + ", ".join(f"{n} {e:.3g}" for n, e in errs[dt].items()))
+        if gated:
+            control = runs["plain", f32]
+            for dt, must_pass in ((bf16, True), (f32, False)):
+                gate = bf16_gate(runs["kernel", dt], runs["plain", bf16],
+                                 control)
+                passed = all(ok for _, _, ok in gate.values())
+                print(f"K2 {what}: bf16 gate on the kernel's "
+                      f"{mode_name[dt]} mode against the plain bf16 mode: "
+                      + ", ".join(f"{g} {n} outside (control {c})"
+                                  for g, (n, c, _) in gate.items())
+                      + f"; {'passes' if passed else 'fails'}")
+                if passed != must_pass:
+                    fail(f"K2 {what}: the bf16 gate "
+                         f"{'fails' if must_pass else 'passes'} the "
+                         f"{mode_name[dt]} mode")
+        return errs
+
+    def k2_drift(dt):
+        """The kernel and the plain version in mode `dt` after K = 128
+        steps at the hopper shape: every output finite, the drift gated at
+        K2_DRIFT.  Returns the two runs' `k2_groups`."""
+        sac_, st_k, st_p, batches, e_next, e_new = k2_case(11, 3, 256, 512,
+                                                           128)
+        got = k2_groups(*k2(sac_, st_k, batches, e_next, e_new, dt))
+        torch.cuda.synchronize()
+        want = k2_groups(*plain_chain(sac_, st_p, batches, e_next, e_new,
+                                      dt))
         for name in got:
-            if pins is not None:
-                check(f"K2 {what} {name}", got[name], want[name], *pins[name])
-            elif not all(bool(torch.isfinite(g).all()) for g in got[name]):
-                fail(f"K2 {what}: {name} is not finite")
-            errs[name] = max_err(got[name], want[name])
-        counts = [(o.count, w.count) for o, w in zip(
-            (st_k.policy_opt, st_k.qf_opt, st_k.alpha_opt),
-            (st_p.policy_opt, st_p.qf_opt, st_p.alpha_opt))]
-        if any(a != b or a != K for a, b in counts):
-            fail(f"K2 {what}: Adam counts {counts}, expected {K}")
-        print(f"K2 {what}: max |kernel - plain| "
-              + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
-        return errs, got, want
+            if not all(bool(torch.isfinite(g).all()) for g in got[name]):
+                fail(f"K2 {mode_name[dt]} K=128: {name} is not finite")
+        drift = {n: max_err(got[n], want[n]) for n in got}
+        print(f"K2 {mode_name[dt]} hopper shape, 256x2, B=512, K=128 "
+              f"(drift): max |kernel - plain| "
+              + ", ".join(f"{n} {e:.3g}" for n, e in drift.items()))
+        if max(drift["params"], drift["log_alpha"]) > K2_DRIFT["params"]:
+            fail(f"K2 {mode_name[dt]} drifts from its plain version by "
+                 f"{drift['params']:.3g} in 128 steps, over "
+                 f"{K2_DRIFT['params']:.3g}")
+        check(f"K2 {mode_name[dt]} K=128 metrics", got["metrics"],
+              want["metrics"], K2_DRIFT["metrics_rtol"],
+              K2_DRIFT["metrics_atol"])
+        return got, want
 
-    k2_against_plain("hidden 32, B=32, K=3", 5, 2, 32, 32, 3, k2_pins)
-    k2_errs, _, _ = k2_against_plain("256x2, B=512, K=4", 11, 3, 256, 512, 4,
-                                     k2_pins)
-    k2_err = max(k2_errs[n] for n in ("params", "log_alpha", "mu", "nu"))
-    drift, got, want = k2_against_plain("256x2, B=512, K=128 (drift)", 11, 3,
-                                        256, 512, 128, None)
-    if max(drift["params"], drift["log_alpha"]) > K2_DRIFT["params"]:
-        fail(f"K2 drifts from its plain version by {drift['params']:.3g} "
-             f"in 128 steps, over {K2_DRIFT['params']:.3g}")
-    check("K2 K=128 metrics", got["metrics"], want["metrics"],
-          K2_DRIFT["metrics_rtol"], K2_DRIFT["metrics_atol"])
+    k2_modes("hidden 32, B=32, K=3", 5, 2, 32, 32, 3)
+    shapes = {"hopper": (11, 3), "ant": (105, 8), "humanoid": (348, 17)}
+    for shape, (n_obs, n_act) in shapes.items():
+        errs = k2_modes(f"{shape} shape {n_obs}/{n_act}, 256x2, B=512, K=4",
+                        n_obs, n_act, 256, 512, 4)
+        if shape == "hopper":
+            k2_err = {dt: max(errs[dt][n] for n in ("params", "log_alpha",
+                                                    "mu", "nu"))
+                      for dt in (bf16, f32)}
+    k2_drift(bf16)
+    f32_got, f32_want = k2_drift(f32)
 
-    # the same 128 steps by the plain version in float64
+    # the float32 mode's 128 steps by the plain version in float64
     sac_d, st_d, _, batches_d, e_next_d, e_new_d = k2_case(11, 3, 256, 512,
                                                            128)
     for module in (st_d.policy, st_d.qf, st_d.target_qf):
@@ -438,52 +561,64 @@ def main() -> int:
     for opt in (st_d.policy_opt, st_d.qf_opt, st_d.alpha_opt):
         opt.mu = [m.double() for m in opt.mu]
         opt.nu = [v.double() for v in opt.nu]
-    st_d, _ = fused_sac.fused_sac_chain_plain(
+    st_d, _ = plain_chain(
         sac_d, st_d, {n: v.double() for n, v in batches_d.items()},
-        e_next_d.double(), e_new_d.double())
+        e_next_d.double(), e_new_d.double(), torch.float32)
     truth = k2_groups(st_d)["params"]
-    kernel_off = max_err([g.double() for g in got["params"]], truth)
-    plain_off = max_err([w.double() for w in want["params"]], truth)
-    print(f"K2 256x2, B=512, K=128: parameters against the float64 plain "
-          f"version: kernel {kernel_off:.3g}, float32 plain version "
+    kernel_off = max_err([g.double() for g in f32_got["params"]], truth)
+    plain_off = max_err([w.double() for w in f32_want["params"]], truth)
+    print(f"K2 float32 256x2, B=512, K=128: parameters against the float64 "
+          f"plain version: kernel {kernel_off:.3g}, float32 plain version "
           f"{plain_off:.3g}")
     if kernel_off > K2_DRIFT["f64_factor"] * plain_off + 1e-6:
         fail(f"K2 ends {kernel_off:.3g} from the float64 result, the "
              f"float32 plain version {plain_off:.3g}")
 
-    sac2, st2, _, batches2, e_next2, e_new2 = k2_case(11, 3, 256, 512, 128)
-    k2_ms = time_ms(lambda: k2(sac2, st2, batches2, e_next2, e_new2), 5, 1)
-    k2_plain_ms = time_ms(lambda: fused_sac.fused_sac_chain_plain(
-        sac2, st2, batches2, e_next2, e_new2), 2, 1)
+    # two launches bit-equal, and times per mode at K = 128
+    k2_ms = {}
+    for shape in ("hopper", "ant"):
+        n_obs, n_act = shapes[shape]
+        sac2, st2, st3, batches2, e_next2, e_new2 = k2_case(n_obs, n_act, 256,
+                                                            512, 128)
+        for dt in (bf16, f32):
+            if shape == "hopper":
+                a_, b_ = sac2.init(1), sac2.init(1)
+                m_a = k2(sac2, a_, batches2, e_next2, e_new2, dt)[1]
+                m_b = k2(sac2, b_, batches2, e_next2, e_new2, dt)[1]
+                same = all(torch.equal(x, y) for x, y in zip(
+                    k2_groups(a_)["params"], k2_groups(b_)["params"]))
+                same = same and all(torch.equal(m_a[n], m_b[n])
+                                    for n in m_a)
+                if not same:
+                    fail(f"K2 {mode_name[dt]}: two launches differ")
+                del a_, b_
+            k2_ms[shape, dt] = time_ms(
+                lambda: k2(sac2, st2, batches2, e_next2, e_new2, dt), 5, 1)
+        if shape == "hopper":
+            k2_plain_ms = time_ms(lambda: fused_sac.fused_sac_chain_plain(
+                sac2, st3, batches2, e_next2, e_new2), 2, 1)
 
-    def eager_128():
-        for k in range(128):
-            sac2.train_step(st2, {n: v[k] for n, v in batches2.items()},
-                            e_next2[k], e_new2[k])
-    k2_eager_ms = time_ms(eager_128, 2, 1)
-    k2_bound = bound_ms(*k2_work(512, 11, 3, 256, 2, 128))
-    print(f"K2 256x2, B=512, K=128: {k2_ms:.3f} ms per chain "
-          f"({k2_ms / 128 * 1e3:.1f} us per step); plain version "
-          f"{k2_plain_ms:.1f} ms; bound {k2_bound[0]:.4f} ms "
-          f"({k2_bound[1]}); on {card}")
-    print(f"K2 replaces 128 eager train_step calls on the same batches: "
-          f"{k2_eager_ms:.1f} ms ({k2_eager_ms / 128:.3f} ms per step)")
-
-    k2_ant_errs, _, _ = k2_against_plain("ant shape: 256x2, B=512, K=4", 105,
-                                         8, 256, 512, 4, k2_pins)
-    sac_a, st_a, _, batches_a, e_next_a, e_new_a = k2_case(105, 8, 256, 512,
-                                                           128)
-    k2_ant_ms = time_ms(lambda: k2(sac_a, st_a, batches_a, e_next_a, e_new_a),
-                        3, 1)
-    k2_ant_bound = bound_ms(*k2_work(512, 105, 8, 256, 2, 128))
-    print(f"K2 at ant's shape (105 / 8, 256x2, B=512, K=128): {k2_ant_ms:.3f} "
-          f"ms per chain; bound {k2_ant_bound[0]:.4f} ms "
-          f"({k2_ant_bound[1]})")
-    del sac_a, st_a, batches_a, e_next_a, e_new_a
+            def eager_128():
+                for k in range(128):
+                    sac2.train_step(st3, {n: v[k] for n, v in batches2.items()},
+                                    e_next2[k], e_new2[k])
+            k2_eager_ms = time_ms(eager_128, 2, 1)
+        del sac2, st2, st3, batches2, e_next2, e_new2
+    k2_bounds = {(shape, dt): k2_bound(512, *shapes[shape], 256, 2, 128,
+                                       dt == bf16)
+                 for shape in ("hopper", "ant") for dt in (bf16, f32)}
+    print("K2 two launches bit-equal in each mode (hopper shape, K=128)")
+    for (shape, dt), ms in k2_ms.items():
+        b = k2_bounds[shape, dt]
+        print(f"K2 {mode_name[dt]} {shape} shape, 256x2, B=512, K=128: "
+              f"{ms:.3f} ms per chain ({ms / 128 * 1e3:.1f} us per step); "
+              f"bound {b[0]:.4f} ms ({b[1]}); on {card}")
+    print(f"K2 plain version (bf16 mode, hopper shape, K=128) "
+          f"{k2_plain_ms:.1f} ms; 128 eager train_step calls on the same "
+          f"batches {k2_eager_ms:.1f} ms ({k2_eager_ms / 128:.3f} ms per "
+          f"step)")
 
     # ---- 4c. K4 vs its plain version --------------------------------------
-    import numpy as np
-
     def k4_problem(nr, nv, B):
         """A seeded instance shaped like the engine's: J random, M = I +
         small SPD, W = M^-1 J^T, 70% of the rows active."""
@@ -614,47 +749,53 @@ def main() -> int:
         r = lp.warmup(lp.init(0, noise=CopiedNoise(1, cpu_env, where)))
         return lp.train_epoch(r, steps_per_epoch=8)
 
-    for fused in (False, True):
-        k2.launches = 0
-        (rg, mg), (rc, mc) = small_slice("cuda", fused), small_slice("cpu",
-                                                                     fused)
-        if k2.launches != (2 if fused else 0):
-            fail(f"small slice, fused={fused}: K2 launched {k2.launches} "
-                 f"times")
-        pairs = [(rg.env_state.obs, rc.env_state.obs)]
-        pairs += list(zip(rg.env_state.internal, rc.env_state.internal))
-        pairs += [(rg.replay.data[k], rc.replay.data[k])
-                  for k in rc.replay.data]
-        pairs += list(zip(k2_groups(rg.algo_state)["params"],
-                          k2_groups(rc.algo_state)["params"]))
-        slice_err = 0.0
-        for x, y in pairs:
-            x = x.detach().cpu()
-            y = y.detach()
-            if not torch.allclose(x, y, rtol=2e-4, atol=5e-3):
-                fail(f"slice on the card differs from the CPU run by "
-                     f"{float((x - y).abs().max()):.3g}")
-            slice_err = max(slice_err, float((x - y).abs().max()))
-        for k in mc:
-            if not math.isclose(mg[k], mc[k], rel_tol=2e-4, abs_tol=5e-3):
-                fail(f"metric {k}: {mg[k]} on the card, {mc[k]} on the CPU")
-        if (rg.replay.ptr, rg.replay.size) != (rc.replay.ptr,
-                                               rc.replay.size):
-            fail("replay cursors differ")
-        print(f"slice, 4 envs, 2 warmup + 2 training iterations, "
-              f"{'fused chain' if fused else 'eager steps'}: card vs CPU "
-              f"max |err| {slice_err:.3g} (rtol 2e-4, atol 5e-3)")
+    # the fused chain in float32 mode: the CPU's float32 plain version and
+    # the card's kernel are compared at float32's pins
+    with float32_chain():
+        for fused in (False, True):
+            k2.launches = 0
+            rg, mg = small_slice("cuda", fused)
+            rc, mc = small_slice("cpu", fused)
+            if k2.launches != (2 if fused else 0):
+                fail(f"small slice, fused={fused}: K2 launched "
+                     f"{k2.launches} times")
+            pairs = [(rg.env_state.obs, rc.env_state.obs)]
+            pairs += list(zip(rg.env_state.internal, rc.env_state.internal))
+            pairs += [(rg.replay.data[k], rc.replay.data[k])
+                      for k in rc.replay.data]
+            pairs += list(zip(k2_groups(rg.algo_state)["params"],
+                              k2_groups(rc.algo_state)["params"]))
+            slice_err = 0.0
+            for x, y in pairs:
+                x = x.detach().cpu()
+                y = y.detach()
+                if not torch.allclose(x, y, rtol=2e-4, atol=5e-3):
+                    fail(f"slice on the card differs from the CPU run by "
+                         f"{float((x - y).abs().max()):.3g}")
+                slice_err = max(slice_err, float((x - y).abs().max()))
+            for k in mc:
+                if not math.isclose(mg[k], mc[k], rel_tol=2e-4,
+                                    abs_tol=5e-3):
+                    fail(f"metric {k}: {mg[k]} on the card, {mc[k]} on "
+                         f"the CPU")
+            if (rg.replay.ptr, rg.replay.size) != (rc.replay.ptr,
+                                                   rc.replay.size):
+                fail("replay cursors differ")
+            print(f"slice, 4 envs, 2 warmup + 2 training iterations, "
+                  f"{'fused chain, float32' if fused else 'eager steps'}: "
+                  f"card vs CPU max |err| {slice_err:.3g} (rtol 2e-4, atol "
+                  f"5e-3)")
 
     # ---- 6. SAC-Hopper at full width: the eager path, then the main path --
     num_envs = 128
-    config = OffPolicyConfig(batch_size=512, replay_capacity=1_000_000,
-                             min_steps_before_training=5_000,
-                             grad_steps_per_iter=128)
-    warmup_iters = max(1, config.min_steps_before_training // num_envs)
 
-    def drive(env_name, fused, train_iters):
+    def drive(env_name, fused, train_iters, min_steps=5_000):
         """Warmup and `train_iters` training iterations from seed 0, with
         every launch count set to 0 just before and read just after."""
+        config = OffPolicyConfig(batch_size=512, replay_capacity=1_000_000,
+                                 min_steps_before_training=min_steps,
+                                 grad_steps_per_iter=128)
+        warmup_iters = max(1, min_steps // num_envs)
         vec = make_vec(env_name, num_envs)
         model = vec.env.model
         sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
@@ -664,7 +805,8 @@ def main() -> int:
         runner = loop.init(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        k1.launches = k2.launches = k3.launches = k4.launches = 0
+        k1.launches = k1s.launches = k2.launches = k3.launches = 0
+        k4.launches = 0
         t0 = time.perf_counter()
         runner = loop.warmup(runner)
         torch.cuda.synchronize()
@@ -672,25 +814,28 @@ def main() -> int:
         runner, metrics = loop.train_epoch(runner, train_iters * num_envs)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        launches = {"planar_forward": k1.launches,
+        launches = {"planar_control_step": k1s.launches,
+                    "planar_forward": k1.launches,
                     "fused_sac_chain": k2.launches,
                     "fused_policy_forward": k3.launches,
                     "pgs_solve": k4.launches}
 
         what = f"{env_name} {'main path' if fused else 'eager path'}"
         control_steps = warmup_iters + train_iters
-        # 4 RK4 evaluations per substep, each one K1 launch on a planar
-        # model and one K4 launch on any other
+        # K1 once per control step on a planar model; K4 once per forward
+        # evaluation (4 RK4 evaluations per substep) on any other
         evaluations = 4 * model.frame_skip * control_steps
         planar = pd.planar_model(model) is not None
-        want = {"planar_forward": evaluations if planar else 0,
+        want = {"planar_control_step": control_steps if planar else 0,
+                "planar_forward": 0,
                 "fused_sac_chain": train_iters if fused else 0,
                 "fused_policy_forward": train_iters,
                 "pgs_solve": 0 if planar else evaluations}
         if launches != want:
-            fail(f"{what}: launches {launches}, expected {want} (K1 or K4 "
-                 f"{4 * model.frame_skip} per control step, K3 one per "
-                 f"acting call, K2 one per fused training iteration)")
+            fail(f"{what}: launches {launches}, expected {want} (K1 one per "
+                 f"control step, K4 {4 * model.frame_skip} per control step, "
+                 f"K3 one per acting call, K2 one per fused training "
+                 f"iteration)")
         bad = [k for k, v in metrics.items() if not math.isfinite(v)]
         if bad or set(metrics) != set(fused_sac.METRIC_NAMES):
             fail(f"{what}: metrics {sorted(metrics)}, non-finite {bad}")
@@ -721,59 +866,42 @@ def main() -> int:
     drive("hopper", fused=False, train_iters=2)
     hopper_launches = drive("hopper", fused=True, train_iters=10)
 
-    # ---- 7. SAC-Ant at full width: this slice's main path -----------------
+    # ---- 7. SAC-Ant at full width ------------------------------------------
     ant_launches = drive("ant", fused=True, train_iters=10)
 
-    # ---- 8. humanoid: the engine and K4 at the widest model ----------------
-    vec = make_vec("humanoid", num_envs)
-    noise = Noise(0, dev)
-    state = vec.reset(noise.reset(vec.env, num_envs))
-    torch.cuda.synchronize()
-    k4.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(5):
-        state, tr = vec.step(
-            state, noise.warmup_action((num_envs, vec.env.action_size)),
-            noise.reset(vec.env, num_envs))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    if k4.launches != 4 * vec.env.model.frame_skip * 5:
-        fail(f"humanoid: K4 launched {k4.launches} times in 5 control steps")
-    for what, x in (("next_obs", tr.next_obs), ("obs", state.obs),
-                    ("reward", tr.reward)):
-        if not torch.isfinite(x).all():
-            fail(f"humanoid: {what} is not finite")
-    if tuple(state.obs.shape) != (num_envs, 348):
-        fail(f"humanoid: observations are {tuple(state.obs.shape)}")
-    print(f"humanoid, {num_envs} envs, 5 control steps of random actions: "
-          f"K4 launched {k4.launches} times, {seconds / 5 * 1e3:.1f} ms per "
-          f"control step ({5 * num_envs / seconds:.1f} env-steps/s), "
-          f"observations finite {list(state.obs.shape)}, mean reward "
-          f"{float(tr.reward.mean()):.3f}")
+    # ---- 8. SAC-Humanoid at full width, cut in length ----------------------
+    humanoid_launches = drive("humanoid", fused=True, train_iters=3,
+                              min_steps=1024)
 
     ant_k4 = k4_stats[K4_SHAPES["ant"]]
     kernels = [
         {"name": "planar_forward", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/planar_forward.cu",
          "replaces": "ilswiss_tpu/ops/planar_dynamics.py:694",
-         "launches": hopper_launches["planar_forward"],
+         "launches": hopper_launches["planar_control_step"],
          "max_abs_err": hopper_err, "ms": k1_times[128],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "ms_per_evaluation": k1_eval_ms, "ms_b1024": k1_times[1024]},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
          "launches": ant_launches["fused_sac_chain"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None},
+         "max_abs_err": k2_err[bf16], "ms": k2_ms["hopper", bf16],
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bounds["hopper", bf16][0],
+         "bound_by": k2_bounds["hopper", bf16][1], "library_ms": None,
+         "float32": {"ms": k2_ms["hopper", f32],
+                     "bound_ms": k2_bounds["hopper", f32][0],
+                     "max_abs_err": k2_err[f32]},
+         "ant_shape_ms": {"bf16": k2_ms["ant", bf16],
+                          "float32": k2_ms["ant", f32]}},
         {"name": "fused_policy_forward", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "ilswiss_tpu/ops/fused_mlp.py:34",
          "launches": ant_launches["fused_policy_forward"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": k3_library_ms},
+         "library_ms": k3_library_ms, "humanoid_shape_ms": k3_hum_ms},
         {"name": "pgs_solve", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/pgs.cu",
          "replaces": "ilswiss_tpu/ops/pgs_pallas.py:80",
@@ -782,13 +910,15 @@ def main() -> int:
          "bound_ms": ant_k4[3][0], "bound_by": ant_k4[3][1],
          "library_ms": None},
     ]
-    # K1's count is the hopper main path's, K4's the ant main path's; K2 and
-    # K3 run on both, 10 launches each, and the line carries the ant path's
-    for entry, name in zip(kernels, ("planar_forward", "fused_sac_chain",
+    # K1's count is the hopper main path's (its control-step mode), K4's
+    # the ant main path's; K2 and K3 run on all three, and the line carries
+    # the ant path's
+    paths = {"hopper": hopper_launches, "ant": ant_launches,
+             "humanoid": humanoid_launches}
+    for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
-        entry["launches_by_path"] = {"hopper": hopper_launches[name],
-                                     "ant": ant_launches[name]}
-        if hopper_launches[name] + ant_launches[name] == 0:
+        entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        if sum(c[name] for c in paths.values()) == 0:
             fail(f"{name} was launched on no main path")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -3,11 +3,16 @@ logic where there is no GPU and no `nvcc` (no JAX counterpart: Pallas has
 an interpret mode).
 
 `build_host("fused_sac", "SacArgs")` copies `csrc/fused_sac.cu`, turns each
-`__shared__ float name[n];` into a per-block buffer, appends a
-`cudaLaunchCooperativeKernel` that runs the kernel on one `std::thread` per
-CUDA thread (the shim's `cudaLaunchKernel` goes the same way, so
-`build_host("pgs", "PgsArgs")` works alike), and compiles the result with `g++ -std=c++20` against the
-headers in `host_shim/` into `build/host/`.  The library has the source's
+`__shared__ float name[n];` into a per-block buffer and `extern __shared__
+float name[];` into the block's dynamic shared memory (sized by the
+launch), appends a `cudaLaunchCooperativeKernel` that runs the kernel on
+one `std::thread` per CUDA thread (the shim's `cudaLaunchKernel` goes the
+same way, so `build_host("pgs", "PgsArgs")` and
+`build_host("planar_forward", "PlanarArgs")` work alike), and compiles the
+result with `g++ -std=c++20` against the headers in `host_shim/` into
+`build/host/`.  The shim defines `ILSWISS_HOST_SHIM` and stands in for
+what a source keeps under `#ifndef ILSWISS_HOST_SHIM` (K2's bf16
+rounding, `mma.sync` and `cp.async`).  The library has the source's
 own C interface, so `ctypes` loads it like the real one and the wrapper's
 launch code can drive it with CPU tensors.  It is for small sizes (a few
 blocks of 256 threads, barriers through the OS) and says nothing about
@@ -27,12 +32,13 @@ SHIM = Path(__file__).resolve().parent / "host_shim"
 HOST_DIR = BUILD_DIR.parent / "host"
 
 _TRAILER = r"""
-thread_local HostIdx threadIdx, blockIdx, gridDim;
+thread_local HostIdx threadIdx, blockIdx, gridDim, blockDim;
 thread_local HostBlock* host_block;
 std::barrier<>* host_grid_bar;
 
 cudaError_t cudaLaunchCooperativeKernel(void* f, dim3 grid, dim3 block,
-                                        void** args, size_t, cudaStream_t) {
+                                        void** args, size_t shared_bytes,
+                                        cudaStream_t) {
   auto kernel = reinterpret_cast<void (*)(ARGS)>(f);
   ARGS a = *static_cast<ARGS*>(args[0]);
   std::vector<HostBlock> blocks(grid.x);
@@ -40,9 +46,11 @@ cudaError_t cudaLaunchCooperativeKernel(void* f, dim3 grid, dim3 block,
   host_grid_bar = &grid_bar;
   for (auto& b : blocks) {
     b.bar.reset(new std::barrier<>(block.x));
+    b.dynamic.resize(shared_bytes / sizeof(float4) + 1);
     for (unsigned w = 0; w < block.x / 32; ++w) {
       b.warp_bar.emplace_back(new std::barrier<>(32));
       b.warp_buf.emplace_back(32);
+      b.warp_frag.emplace_back(32 * 6);
     }
   }
   std::vector<std::thread> threads;
@@ -52,6 +60,7 @@ cudaError_t cudaLaunchCooperativeKernel(void* f, dim3 grid, dim3 block,
         threadIdx = {ti, 0, 0};
         blockIdx = {bi, 0, 0};
         gridDim = {grid.x, 1, 1};
+        blockDim = {block.x, 1, 1};
         host_block = &blocks[bi];
         kernel(a);
       });
@@ -68,11 +77,12 @@ def build_host(name: str, args_struct: str) -> Path:
     if gxx is None:
         raise RuntimeError("g++ was not found")
     src = (CSRC / f"{name}.cu").read_text()
-    src, n = re.subn(
+    src = re.sub(
+        r"extern __shared__ (?:__align__\(16\) )?float (\w+)\[\];",
+        r"float* \1 = host_dynamic_shared();", src)
+    src = re.sub(
         r"__shared__ (?:__align__\(16\) )?float (\w+)\[(.+?)\];",
         r'float* \1 = host_shared("\1", (\2));', src)
-    if n == 0:
-        raise RuntimeError(f"{name}.cu declares no shared float arrays")
     HOST_DIR.mkdir(parents=True, exist_ok=True)
     cpp = HOST_DIR / f"{name}_host.cpp"
     cpp.write_text(src + _TRAILER.replace("ARGS", args_struct))

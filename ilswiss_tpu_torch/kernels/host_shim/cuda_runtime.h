@@ -1,10 +1,13 @@
 // A host stand-in for the parts of the CUDA runtime that the port's
 // cooperative kernels use, so that a .cu source can be compiled by g++ and
 // run on CPU threads (see ../host_build.py).  One std::thread per CUDA
-// thread; std::barrier for __syncthreads, for a warp's shuffles and for
-// grid.sync().  It checks a kernel's logic at small sizes, not its speed.
+// thread; std::barrier for __syncthreads, for a warp's shuffles and
+// tensor-core products, and for grid.sync().  It checks a kernel's logic
+// at small sizes, not its speed.
 #pragma once
+#define ILSWISS_HOST_SHIM 1
 #include <algorithm>
+#include <cstring>
 #include <barrier>
 #include <cmath>
 #include <map>
@@ -22,7 +25,8 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __noinline__
+#define __launch_bounds__(...)
 #define __align__(x) alignas(x)
 
 struct alignas(16) float4 { float x, y, z, w; };
@@ -38,6 +42,7 @@ enum cudaError_t {
   cudaErrorCooperativeLaunchTooLarge = 720
 };
 enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrCooperativeLaunch = 95 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error"
@@ -45,6 +50,19 @@ inline const char* cudaGetErrorString(cudaError_t e) {
 }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaFuncSetAttribute(const void*, int, int) {
+  return cudaSuccess;
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, 4);
+  return x;
+}
 // the "SM count" is the number of blocks to run: three, an odd number, so
 // that round-robin dealing of work to blocks wraps unevenly
 inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
@@ -70,10 +88,12 @@ struct HostBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::vector<std::vector<float>> warp_buf;
+  std::vector<std::vector<unsigned>> warp_frag;  // 6 registers a lane
+  std::vector<float4> dynamic;  // `extern __shared__` memory of a launch
   std::mutex mu;
   std::map<std::string, std::vector<float4>> shared;
 };
-extern thread_local HostIdx threadIdx, blockIdx, gridDim;
+extern thread_local HostIdx threadIdx, blockIdx, gridDim, blockDim;
 extern thread_local HostBlock* host_block;
 extern std::barrier<>* host_grid_bar;
 
@@ -95,4 +115,69 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const float r = host_block->warp_buf[w][l ^ lane_mask];
   host_block->warp_bar[w]->arrive_and_wait();
   return r;
+}
+
+// `extern __shared__ float name[];` becomes
+// `float* name = host_dynamic_shared();`
+inline float* host_dynamic_shared() {
+  return reinterpret_cast<float*>(host_block->dynamic.data());
+}
+
+// bf16 rounding to nearest, ties to even, as cvt.rn.bf16x2.f32 does:
+// bf16_pack(lo, hi) holds lo in its low half
+inline unsigned bf16_bits(float x) {
+  unsigned u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;  // NaN
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return u >> 16;
+}
+inline unsigned bf16_pack(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+inline float bf16_round(float x) {
+  return __uint_as_float(bf16_bits(x) << 16);
+}
+
+// Asynchronous copies: plain copies here; a wait has nothing to wait for.
+inline void cp_async16(float* dst, const float* src) {
+  std::memcpy(dst, src, 16);
+}
+inline void cp_async4(float* dst, const float* src) { *dst = *src; }
+inline void cp_async_commit() {}
+inline void cp_async_wait(int) {}
+
+// Stand-in for mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with the
+// instruction's fragment layout: the warp's lanes pool their fragments,
+// rebuild the 16 x 16 bf16 matrix a and the 16 x 8 matrix b, and each lane
+// adds its four entries of a b (rows g and g + 8, columns 2t and 2t + 1,
+// g = lane / 4, t = lane % 4) to c in float32.
+inline void mma_bf16_16816(float c[4], const unsigned a[4],
+                           const unsigned b[2]) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  unsigned* buf = host_block->warp_frag[w].data();
+  for (int i = 0; i < 4; ++i) buf[l * 6 + i] = a[i];
+  buf[l * 6 + 4] = b[0];
+  buf[l * 6 + 5] = b[1];
+  host_block->warp_bar[w]->arrive_and_wait();
+  float A[16][16], Bm[16][8];
+  auto lo = [](unsigned r) { return __uint_as_float(r << 16); };
+  auto hi = [](unsigned r) { return __uint_as_float(r & 0xffff0000u); };
+  for (int L = 0; L < 32; ++L) {
+    const int g = L / 4, t = (L % 4) * 2;
+    const unsigned* f = buf + L * 6;
+    A[g][t] = lo(f[0]);         A[g][t + 1] = hi(f[0]);
+    A[g + 8][t] = lo(f[1]);     A[g + 8][t + 1] = hi(f[1]);
+    A[g][t + 8] = lo(f[2]);     A[g][t + 9] = hi(f[2]);
+    A[g + 8][t + 8] = lo(f[3]); A[g + 8][t + 9] = hi(f[3]);
+    Bm[t][g] = lo(f[4]);        Bm[t + 1][g] = hi(f[4]);
+    Bm[t + 8][g] = lo(f[5]);    Bm[t + 9][g] = hi(f[5]);
+  }
+  host_block->warp_bar[w]->arrive_and_wait();
+  const int g = l / 4, t = (l % 4) * 2;
+  for (int j = 0; j < 4; ++j) {
+    const int row = g + (j / 2) * 8, col = t + (j % 2);
+    float s = c[j];
+    for (int k = 0; k < 16; ++k) s += A[row][k] * Bm[k][col];
+    c[j] = s;
+  }
 }

@@ -11,7 +11,8 @@ build/prof/) in which thread 0 of block 0 reads `clock64()` after every
 through the metrics table.  It prints the cycles between successive
 barriers at the main path's shapes (11 / 3, 256 x 2, batch 512), the
 card's name and power limit, and the time of a whole chain by CUDA events
-with the unpatched arithmetic (the patch adds one clock read per phase).
+with the unpatched arithmetic (the patch adds one clock read per phase),
+once for each mode of the products (bf16, the default, and float32).
 A phase's count includes the barrier that ends it.
 """
 
@@ -92,30 +93,32 @@ def main() -> int:
                "terminal": (draw(K, B) > 1.0).float(),
                "next_obs": draw(K, B, n_obs)}
     eps_next, eps_new = draw(K, B, n_act), draw(K, B, n_act)
-    for _ in range(3):
-        state, metrics = fused_sac.fused_sac_chain(sac, state, batches,
-                                                   eps_next, eps_new)
-    torch.cuda.synchronize()
-    table = torch.stack([metrics[n] for n in fused_sac.METRIC_NAMES], 1)
-    cycles = []
-    for v in table.flatten().tolist():
-        if v < 0:
-            break
-        cycles.append(v)
-    total = sum(cycles)
-    for i, c in enumerate(cycles):
-        name = PHASES[i] if len(cycles) == len(PHASES) else f"phase {i}"
-        print(f"{name:36s} {c:9.0f} cycles {100 * c / total:5.1f}%")
-    print(f"one step: {total:.0f} cycles over {len(cycles)} barriers")
+    for name, dt in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+        for _ in range(3):
+            state, metrics = fused_sac.fused_sac_chain(
+                sac, state, batches, eps_next, eps_new, dt)
+        torch.cuda.synchronize()
+        table = torch.stack([metrics[n] for n in fused_sac.METRIC_NAMES], 1)
+        cycles = []
+        for v in table.flatten().tolist():
+            if v < 0:
+                break
+            cycles.append(v)
+        total = sum(cycles)
+        print(f"--- {name} products")
+        for i, c in enumerate(cycles):
+            phase = PHASES[i] if len(cycles) == len(PHASES) else f"phase {i}"
+            print(f"{phase:36s} {c:9.0f} cycles {100 * c / total:5.1f}%")
+        print(f"one step: {total:.0f} cycles over {len(cycles)} barriers")
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fused_sac.fused_sac_chain(sac, state, batches, eps_next, eps_new)
-    end.record()
-    end.synchronize()
-    print(f"chain of {K} steps: {start.elapsed_time(end) / K * 1e3:.1f} us "
-          f"per step, on {card}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fused_sac.fused_sac_chain(sac, state, batches, eps_next, eps_new, dt)
+        end.record()
+        end.synchronize()
+        print(f"chain of {K} steps: {start.elapsed_time(end) / K * 1e3:.1f} "
+              f"us per step, {name} products, on {card}")
     return 0
 
 

@@ -18,7 +18,7 @@ import torch
 from ilswiss_tpu_torch.models.distributions import LOG_SIG_MAX, LOG_SIG_MIN
 from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
 
-MAX_HIDDEN, MAX_WIDTH = 4, 256
+MAX_HIDDEN, MAX_WIDTH = 4, 1024   # MLP_MAX_* in csrc/fused_mlp.cu
 
 
 def _layers(policy: TanhGaussianPolicy):
@@ -39,6 +39,26 @@ def policy_forward_plain(weights, biases, obs: torch.Tensor
     log_std = torch.clamp(torch.addmm(biases[-1], h, weights[-1].t()),
                           LOG_SIG_MIN, LOG_SIG_MAX)
     return mean, log_std
+
+
+def _kernel_dims(weights, biases, obs: torch.Tensor) -> list[int]:
+    """The widths (obs size, then each trunk layer) as K3 takes them;
+    raises ValueError for what it does not take.  Runs before anything is
+    built, so it runs without a card."""
+    num_hidden = len(weights) - 2
+    if obs.dim() != 2 or obs.dtype != torch.float32 or not obs.is_contiguous():
+        raise ValueError("obs must be a contiguous [B, obs_size] float32 "
+                         "tensor")
+    dims = [obs.shape[1]] + [w.shape[0] for w in weights[:num_hidden]]
+    if not 1 <= num_hidden <= MAX_HIDDEN or max(dims) > MAX_WIDTH:
+        raise ValueError(f"K3 takes 1..{MAX_HIDDEN} trunk layers of width "
+                         f"<= {MAX_WIDTH}; got widths {dims}")
+    for t in weights + biases:
+        if (t.device != obs.device or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError("policy parameters must be contiguous float32 "
+                             f"tensors on {obs.device}")
+    return dims
 
 
 _LIB: ctypes.CDLL | None = None
@@ -75,19 +95,8 @@ def fused_gaussian_policy_forward(policy: TanhGaussianPolicy,
         return policy_forward_plain(weights, biases, obs)
     if obs.device.type != "cuda":
         raise ValueError(f"unsupported device {obs.device}")
+    dims = _kernel_dims(weights, biases, obs)
     num_hidden = len(weights) - 2
-    dims = [obs.shape[1]] + [w.shape[0] for w in weights[:num_hidden]]
-    if obs.dim() != 2 or obs.dtype != torch.float32 or not obs.is_contiguous():
-        raise ValueError("obs must be a contiguous [B, obs_size] float32 "
-                         "tensor")
-    if not 1 <= num_hidden <= MAX_HIDDEN or max(dims) > MAX_WIDTH:
-        raise ValueError(f"K3 takes 1..{MAX_HIDDEN} trunk layers of width "
-                         f"<= {MAX_WIDTH}; got widths {dims}")
-    for t in weights + biases:
-        if (t.device != obs.device or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError("policy parameters must be contiguous float32 "
-                             f"tensors on {obs.device}")
     B, A = obs.shape[0], weights[-1].shape[0]
     mean = torch.empty((B, A), dtype=torch.float32, device=obs.device)
     log_std = torch.empty_like(mean)

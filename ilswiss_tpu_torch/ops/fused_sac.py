@@ -35,8 +35,14 @@ the critics' counts are advanced by K, and alpha's by K only when
 Both versions update the `SACState` IN PLACE (parameters, targets,
 moments, log alpha, counts) and read the parameters where they live:
 `nn.Linear` weights [out, in] for the policy, `TwinQ` kernels [2, in, out]
-for the critics.  Everything is float32; the JAX default of bfloat16
-products with float32 accumulation is not ported.
+for the critics.  State and elementwise math are float32.
+
+MATRIX PRODUCTS IN `matmul_dtype`.  As in the JAX kernel, every product
+rounds both operands to `matmul_dtype` (bfloat16 by default) and sums in
+float32: trunk and head forwards, Q outputs, weight and input gradients.
+Bias gradients are float32 sums of the unrounded upstream gradient, and
+the bias is added to a product in float32.  `torch.float32` is the parity
+mode, the one the JAX tests select with `matmul_dtype=jnp.float32`.
 """
 
 from __future__ import annotations
@@ -58,33 +64,46 @@ ADAM_B2 = 0.999
 _LOG_2PI = math.log(2.0 * math.pi)
 
 # limits of kernel K2 (SAC_MAX_* in csrc/fused_sac.cu)
-MAX_HIDDEN, MAX_ACTION, MAX_WIDTH, MAX_BATCH = 4, 8, 1024, 4096
+MAX_HIDDEN, MAX_ACTION, MAX_WIDTH, MAX_BATCH = 4, 32, 1024, 4096
+MATMUL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _rounder(matmul_dtype):
+    """x -> x rounded to `matmul_dtype` and back to float32: what a product
+    in that type does to each operand before its exact float32 sums."""
+    if matmul_dtype == torch.float32:
+        return lambda x: x
+    if matmul_dtype != torch.bfloat16:
+        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}, "
+                         f"got {matmul_dtype}")
+    return lambda x: x.to(torch.bfloat16).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
 # The plain version
 # --------------------------------------------------------------------------
 
-def _policy_fwd(layers, x):
-    """(mean, raw log-std, [x, g1..gL]) through nn.Linear layers."""
+def _policy_fwd(layers, x, r):
+    """(mean, raw log-std, [x, g1..gL]) through nn.Linear layers, the
+    operands of each product rounded by `r`."""
     acts = [x]
     for lin in layers[:-2]:
-        x = torch.relu(torch.addmm(lin.bias, x, lin.weight.t()))
+        x = torch.relu(torch.addmm(lin.bias, r(x), r(lin.weight).t()))
         acts.append(x)
-    mean = torch.addmm(layers[-2].bias, x, layers[-2].weight.t())
-    ls_raw = torch.addmm(layers[-1].bias, x, layers[-1].weight.t())
+    mean = torch.addmm(layers[-2].bias, r(x), r(layers[-2].weight).t())
+    ls_raw = torch.addmm(layers[-1].bias, r(x), r(layers[-1].weight).t())
     return mean, ls_raw, acts
 
 
-def _critic_fwd(layers, x):
+def _critic_fwd(layers, x, r):
     """(q [2, B, 1], [x, h1..hL] each [2, B, .]) through both critics."""
     x = x.expand((2,) + x.shape)
     acts = [x]
     for w, b in layers[:-1]:
-        x = torch.relu(torch.baddbmm(b[:, None, :], x, w))
+        x = torch.relu(torch.baddbmm(b[:, None, :], r(x), r(w)))
         acts.append(x)
     w, b = layers[-1]
-    return torch.baddbmm(b[:, None, :], x, w), acts
+    return torch.baddbmm(b[:, None, :], r(x), r(w)), acts
 
 
 def _log_pi(eps, ls, a):
@@ -95,12 +114,14 @@ def _log_pi(eps, ls, a):
 
 @torch.no_grad()
 def fused_sac_chain_plain(sac, state, batches: Dict[str, torch.Tensor],
-                          eps_next: torch.Tensor, eps_new: torch.Tensor):
+                          eps_next: torch.Tensor, eps_new: torch.Tensor,
+                          matmul_dtype=torch.bfloat16):
     """K SAC gradient steps in tensor operations, the backward written out
     by hand.  `batches`: [K, B, ...] tensors under `BATCH_KEYS`; `eps_*`:
     [K, B, A] standard-normal draws.  Updates `state` in place and returns
     (state, metrics) with each metric a [K] tensor.  See the module
-    docstring for the shared Adam step."""
+    docstring for the shared Adam step and `matmul_dtype`."""
+    r = _rounder(matmul_dtype)
     cfg = sac.config
     K, B = batches["reward"].shape
     n_obs, A = sac.obs_size, sac.action_size
@@ -125,11 +146,11 @@ def fused_sac_chain_plain(sac, state, batches: Dict[str, torch.Tensor],
         alpha = torch.exp(log_alpha)
 
         # ---- critic target: policy and alpha from before the step --------
-        mean_n, lsr_n, _ = _policy_fwd(P, no)
+        mean_n, lsr_n, _ = _policy_fwd(P, no, r)
         ls_n = torch.clamp(lsr_n, LOG_SIG_MIN, LOG_SIG_MAX)
         a_n = torch.tanh(mean_n + torch.exp(ls_n) * eps_n)
         logpi_n = _log_pi(eps_n, ls_n, a_n)
-        tq, _ = _critic_fwd(T, torch.cat([no, a_n], dim=-1))
+        tq, _ = _critic_fwd(T, torch.cat([no, a_n], dim=-1), r)
         min_tq = torch.minimum(tq[0], tq[1])
         y = cfg.reward_scale * rew + (1.0 - term) * cfg.discount * (
             min_tq - alpha * logpi_n)
@@ -137,35 +158,37 @@ def fused_sac_chain_plain(sac, state, batches: Dict[str, torch.Tensor],
             y = torch.clamp(y, cfg.q_target_min, cfg.q_target_max)
 
         # ---- critics: forward, backward, Adam -----------------------------
-        q, acts = _critic_fwd(C, torch.cat([o, a_taken], dim=-1))
+        q, acts = _critic_fwd(C, torch.cat([o, a_taken], dim=-1), r)
         diff = q - y
         qf_losses = 0.5 * torch.mean(diff * diff, dim=(1, 2))
         d = diff * (1.0 / B)                        # dL/dq, [2, B, 1]
         Cg = [None] * (2 * (L + 1))
         for i in range(L, -1, -1):
-            Cg[2 * i] = torch.bmm(acts[i].transpose(1, 2), d)
+            Cg[2 * i] = torch.bmm(r(acts[i]).transpose(1, 2), r(d))
             Cg[2 * i + 1] = torch.sum(d, dim=1)
             if i > 0:
-                d = torch.bmm(d, C[i][0].transpose(1, 2)) * (acts[i] > 0.0)
+                d = torch.bmm(r(d), r(C[i][0]).transpose(1, 2)) \
+                    * (acts[i] > 0.0)
         state.qf_opt.apply(Cg, t)
 
         # ---- policy against the UPDATED critics ---------------------------
-        mean, lsr, pacts = _policy_fwd(P, o)
+        mean, lsr, pacts = _policy_fwd(P, o, r)
         ls = torch.clamp(lsr, LOG_SIG_MIN, LOG_SIG_MAX)
         sigma = torch.exp(ls)
         a_new = torch.tanh(mean + sigma * eps_w)
         one_m_a2 = 1.0 - a_new * a_new
         logpi = _log_pi(eps_w, ls, a_new)
-        qn, kacts = _critic_fwd(C, torch.cat([o, a_new], dim=-1))
+        qn, kacts = _critic_fwd(C, torch.cat([o, a_new], dim=-1), r)
         qmin = torch.minimum(qn[0], qn[1])
 
         # dL/dq_e = -1/B to the critic with the smaller Q (0 on a tie)
         sel0 = (qn[0] <= qn[1]).to(q.dtype)
         d = (-1.0 / B) * torch.stack([sel0, 1.0 - sel0])
         for i in range(L, 0, -1):
-            d = torch.bmm(d, C[i][0].transpose(1, 2)) * (kacts[i] > 0.0)
-        dxn = torch.bmm(d, C[0][0].transpose(1, 2))
-        da_q = dxn[0, :, n_obs:] + dxn[1, :, n_obs:]
+            d = torch.bmm(r(d), r(C[i][0]).transpose(1, 2)) \
+                * (kacts[i] > 0.0)
+        dxn = torch.bmm(r(d), r(C[0][0][:, n_obs:]).transpose(1, 2))
+        da_q = dxn[0] + dxn[1]
 
         inv_sig = torch.exp(-ls)
         scale = alpha / B
@@ -181,14 +204,15 @@ def fused_sac_chain_plain(sac, state, batches: Dict[str, torch.Tensor],
         Pg = [None] * (2 * (L + 2))
         gL = pacts[L]
         for j, dh in ((L, dmean), (L + 1, dls_raw)):
-            Pg[2 * j] = dh.t() @ gL
+            Pg[2 * j] = r(dh).t() @ r(gL)
             Pg[2 * j + 1] = torch.sum(dh, dim=0)
-        d = (dmean @ P[L].weight + dls_raw @ P[L + 1].weight) * (gL > 0.0)
+        d = (r(dmean) @ r(P[L].weight) + r(dls_raw) @ r(P[L + 1].weight)) \
+            * (gL > 0.0)
         for i in range(L - 1, -1, -1):
-            Pg[2 * i] = d.t() @ pacts[i]
+            Pg[2 * i] = r(d).t() @ r(pacts[i])
             Pg[2 * i + 1] = torch.sum(d, dim=0)
             if i > 0:
-                d = (d @ P[i].weight) * (pacts[i] > 0.0)
+                d = (r(d) @ r(P[i].weight)) * (pacts[i] > 0.0)
         state.policy_opt.apply(Pg, t)
 
         policy_loss = (torch.mean(alpha * logpi - qmin)
@@ -309,8 +333,8 @@ def _kernel_inputs(sac, state, batches, eps_next, eps_new):
     return streams, tensors
 
 
-def _launch(lib: ctypes.CDLL, sac, state, streams, tensors, stream
-            ) -> torch.Tensor:
+def _launch(lib: ctypes.CDLL, sac, state, streams, tensors, stream,
+            matmul_dtype=torch.bfloat16) -> torch.Tensor:
     """One call of the library's `fused_sac_chain` on checked inputs; returns
     the [K, 8] metrics table.  `lib` is the CUDA library, or in a test the
     CPU build of the same source (kernels/host_build.py)."""
@@ -326,7 +350,7 @@ def _launch(lib: ctypes.CDLL, sac, state, streams, tensors, stream
     ptrs = [t.data_ptr() for t in streams + tensors + [scratch, table]]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     dims = (K, B, n_obs, A, H, L, state.policy_opt.count,
-            int(cfg.train_alpha))
+            int(cfg.train_alpha), int(matmul_dtype == torch.bfloat16))
     c_dims = (ctypes.c_int * len(dims))(*dims)
     hyper = (cfg.discount, cfg.reward_scale, cfg.soft_target_tau, cfg.beta_1,
              ADAM_B2, cfg.qf_lr, cfg.policy_lr, cfg.alpha_lr,
@@ -344,8 +368,10 @@ def _launch(lib: ctypes.CDLL, sac, state, streams, tensors, stream
 
 
 def fused_sac_chain(sac, state, batches: Dict[str, torch.Tensor],
-                    eps_next: torch.Tensor, eps_new: torch.Tensor):
-    """Run K fused SAC gradient steps on `state`, in place.
+                    eps_next: torch.Tensor, eps_new: torch.Tensor,
+                    matmul_dtype=torch.bfloat16):
+    """Run K fused SAC gradient steps on `state`, in place, with products
+    in `matmul_dtype` (bfloat16 or float32, see the module docstring).
 
     `batches`: dict of [K, B, ...] tensors (obs, action, reward, terminal,
     next_obs) sampled from the replay ring; `eps_next`, `eps_new`:
@@ -356,17 +382,21 @@ def fused_sac_chain(sac, state, batches: Dict[str, torch.Tensor],
     K2 once on the current stream and add one to
     `fused_sac_chain.launches`; the call raises ValueError for inputs the
     kernel does not take (anything but contiguous float32 tensors on one
-    device, more than 4 hidden layers, widths over 1024, more than 8
-    action dimensions, batches over 4096) and RuntimeError when the
-    launch fails.  See the module docstring for the shared Adam step."""
+    device, more than 4 hidden layers, widths over 1024, more than 32
+    action dimensions, batches over 4096, another `matmul_dtype`) and
+    RuntimeError when the launch fails.  See the module docstring for the
+    shared Adam step."""
     reward = batches["reward"]
+    _rounder(matmul_dtype)   # raises for a type the chain does not take
     if reward.device.type == "cpu":
-        return fused_sac_chain_plain(sac, state, batches, eps_next, eps_new)
+        return fused_sac_chain_plain(sac, state, batches, eps_next, eps_new,
+                                     matmul_dtype)
     if reward.device.type != "cuda":
         raise ValueError(f"unsupported device {reward.device}")
     streams, tensors = _kernel_inputs(sac, state, batches, eps_next, eps_new)
     stream = torch.cuda.current_stream(reward.device).cuda_stream
-    table = _launch(_lib(), sac, state, streams, tensors, stream)
+    table = _launch(_lib(), sac, state, streams, tensors, stream,
+                    matmul_dtype)
     fused_sac_chain.launches += 1
     _advance_counts(state, reward.shape[0], sac.config.train_alpha)
     return state, {n: table[:, j] for j, n in enumerate(METRIC_NAMES)}

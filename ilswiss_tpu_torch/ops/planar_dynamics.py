@@ -16,12 +16,14 @@ with the JAX module's formulas, row order and constants.  It exists twice:
     (structure of arrays, one `[B]` row per coordinate), which the CPU
     tests hold against the JAX package;
   * `csrc/planar_forward.cu`, the CUDA kernel that replaces the Pallas
-    `_fwd_kernel`: one thread per env, one forward evaluation per launch,
-    the model's constants in `__constant__` memory.
+    `_fwd_kernel` and the integrator around it: one thread per env, the
+    envs spread over the SMs, each env's working set in shared memory,
+    one whole control step (or one forward evaluation) per launch.
 
-`planar_forward` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; `planar_physics_step` runs one control step
-(`frame_skip` substeps of RK4 or Euler) over a batch.
+`planar_forward` (one evaluation) and `planar_control_step` (one control
+step, `frame_skip` substeps of RK4 or Euler) take the plain versions for
+CPU tensors and launch the kernel for CUDA tensors; `planar_physics_step`
+runs one control step over a [B, .] batch.
 """
 
 from __future__ import annotations
@@ -488,7 +490,6 @@ def _forward_math(pm: PlanarModel, q, qd, ctrl, f0, iters: int,
 # --------------------------------------------------------------------------
 
 MAX_BODY, MAX_DOF, MAX_ACT, MAX_CON, MAX_LIM = 8, 9, 6, 16, 12
-MAX_SLOTS = 8
 
 _I, _F = ctypes.c_int, ctypes.c_float
 
@@ -537,6 +538,7 @@ class PlanarConsts(ctypes.Structure):
         ("lim_k", _F * MAX_LIM), ("lim_negbside", _F * MAX_LIM),
         ("lim_diag", _F * MAX_LIM),
         ("lim_imp", (_F * 7) * MAX_LIM),
+        ("h", _F), ("frame_skip", _I), ("euler", _I),
     ]
 
 
@@ -564,6 +566,8 @@ def planar_consts(pm: PlanarModel) -> PlanarConsts:
         pm.nbody, pm.nv, nu, pm.ncon, nlim, pm.nrow)
     c.nlimdof = len(pm.limit_dofs)
     c.gz, c.floor_z = pm.gz, pm.floor_z
+    c.h, c.frame_skip = pm.timestep, pm.frame_skip
+    c.euler = int(pm.integrator == "euler")
     nj = 0
     for b in range(pm.nbody):
         c.body_parent[b] = pm.body_parent[b]
@@ -630,53 +634,62 @@ def planar_consts(pm: PlanarModel) -> PlanarConsts:
 
 
 class _PlanarKernel:
-    """The loaded K1 library and the constant-memory slots it holds."""
+    """The loaded K1 library and each model's constant table on each
+    device.  `lib` is the CUDA library, or in a test the CPU build of the
+    same source (kernels/host_build.py)."""
 
-    def __init__(self):
-        from ilswiss_tpu_torch.kernels.build import load
-        lib = load("planar_forward")
+    def __init__(self, lib: ctypes.CDLL | None = None):
+        if lib is None:
+            from ilswiss_tpu_torch.kernels.build import load
+            lib = load("planar_forward")
         lib.planar_consts_size.restype = ctypes.c_size_t
         lib.planar_error_string.argtypes = [ctypes.c_int]
         lib.planar_error_string.restype = ctypes.c_char_p
-        lib.planar_set_model.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                         ctypes.c_size_t]
-        lib.planar_set_model.restype = ctypes.c_int
-        p = ctypes.c_void_p
-        lib.planar_forward_launch.argtypes = [
-            ctypes.c_int, p, p, p, p, p, p, p, p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-        lib.planar_forward_launch.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.planar_launch.argtypes = [p, i] + [p] * 10 + [i] * 4 + [p]
+        lib.planar_launch.restype = ctypes.c_int
         if lib.planar_consts_size() != ctypes.sizeof(PlanarConsts):
             raise RuntimeError(
                 f"PlanarConsts is {ctypes.sizeof(PlanarConsts)} bytes in "
                 f"Python and {lib.planar_consts_size()} in CUDA")
         self.lib = lib
-        # (device index, model) -> slot; the model is held so its id
-        # cannot be reused while the slot is live
-        self.slots: dict[tuple[int, int], tuple[int, PlanarModel]] = {}
+        # (device, model) -> (table, model); the model is held so that its
+        # id cannot be reused while the table lives
+        self.tables: dict[tuple[str, int], tuple[torch.Tensor,
+                                                 PlanarModel]] = {}
 
-    def check(self, err: int, what: str) -> None:
+    def table(self, pm: PlanarModel, device: torch.device) -> torch.Tensor:
+        key = (str(device), id(pm))
+        hit = self.tables.get(key)
+        if hit is None:
+            raw = bytearray(planar_consts(pm))
+            hit = (torch.frombuffer(raw, dtype=torch.uint8).to(device), pm)
+            self.tables[key] = hit
+        return hit[0]
+
+    def launch(self, pm: PlanarModel, q, qd, ctrl, f0, iters: int,
+               step: bool, damped: bool, stream) -> tuple:
+        """One launch on checked [rows, B] tensors; returns the kernel's
+        outputs (see `planar_forward` and `planar_control_step`).  An
+        empty batch launches nothing and returns empty outputs."""
+        B = q.shape[1]
+        new = lambda rows: torch.empty((rows, B), dtype=torch.float32,
+                                       device=q.device)
+        q_out, con, f = new(pm.nv), new(pm.nv), new(pm.nrow)
+        qd_out = new(pm.nv) if step or damped else None
+        q_ev, qd_ev = (new(pm.nv), new(pm.nv)) if step else (None, None)
+        ptr = lambda t: None if t is None or t.numel() == 0 else t.data_ptr()
+        err = 0 if B == 0 else self.lib.planar_launch(
+            self.table(pm, q.device).data_ptr(), pm.nv, ptr(q), ptr(qd),
+            ptr(ctrl), ptr(f0), ptr(q_out), ptr(qd_out), ptr(con), ptr(f),
+            ptr(q_ev), ptr(qd_ev), B, int(iters), int(step), int(damped),
+            stream)
         if err != 0:
             raise RuntimeError(
-                f"{what}: {self.lib.planar_error_string(err).decode()}")
-
-    def slot(self, pm: PlanarModel, device: torch.device) -> int:
-        key = (device.index, id(pm))
-        hit = self.slots.get(key)
-        if hit is not None:
-            return hit[0]
-        used = [s for (dev, _), (s, _) in self.slots.items()
-                if dev == device.index]
-        if len(used) >= MAX_SLOTS:
-            raise RuntimeError(f"more than {MAX_SLOTS} planar models")
-        slot = len(used)
-        consts = planar_consts(pm)
-        with torch.cuda.device(device):
-            self.check(self.lib.planar_set_model(
-                slot, ctypes.addressof(consts), ctypes.sizeof(consts)),
-                "planar_set_model")
-        self.slots[key] = (slot, pm)
-        return slot
+                f"planar_launch: {self.lib.planar_error_string(err).decode()}")
+        if step:
+            return q_out, qd_out, con, f, (q_ev, qd_ev)
+        return (q_out, con, f, qd_out) if damped else (q_out, con, f)
 
 
 _KERNEL: _PlanarKernel | None = None
@@ -689,21 +702,9 @@ def _kernel() -> _PlanarKernel:
     return _KERNEL
 
 
-def planar_forward(pm: PlanarModel, q, qd, ctrl, f0, iters: int,
-                   damped: bool):
-    """One forward evaluation over [rows, B] float32 tensors: q and qd
-    [nv, B], ctrl [nu, B], f0 [nrow, B].  Returns (qacc, qfrc_con, f) and,
-    when `damped`, the implicit-damping qacc.
-
-    A CPU tensor takes the plain version, `_forward_math`.  A CUDA tensor
-    launches kernel K1 (csrc/planar_forward.cu) once, on the current
-    stream, and adds one to `planar_forward.launches`; it raises if the
-    kernel cannot launch."""
-    if q.device.type == "cpu":
-        return _forward_math(pm, q, qd, ctrl, f0, iters,
-                             pm.timestep if damped else None)
-    if q.device.type != "cuda":
-        raise ValueError(f"planar_forward: unsupported device {q.device}")
+def _check_rows(pm: PlanarModel, q, qd, ctrl, f0) -> None:
+    """Raises ValueError unless q, qd [nv, B], ctrl [nu, B], f0 [nrow, B]
+    are contiguous float32 tensors on q's device."""
     B = q.shape[1]
     nu = len(pm.act_dof)
     for name, t, rows in (("q", q, pm.nv), ("qd", qd, pm.nv),
@@ -714,26 +715,62 @@ def planar_forward(pm: PlanarModel, q, qd, ctrl, f0, iters: int,
             raise ValueError(
                 f"{name} must be a contiguous [{rows}, {B}] tensor, "
                 f"got {tuple(t.shape)}")
-    k = _kernel()
-    slot = k.slot(pm, q.device)
-    qacc = torch.empty_like(q)
-    con = torch.empty_like(q)
-    f = torch.empty((pm.nrow, B), dtype=torch.float32, device=q.device)
-    qacc_d = torch.empty_like(q) if damped else None
-    if B > 0:
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        k.check(k.lib.planar_forward_launch(
-            slot, q.data_ptr(), qd.data_ptr(), ctrl.data_ptr(),
-            f0.data_ptr() if pm.nrow else None,
-            qacc.data_ptr(), con.data_ptr(),
-            f.data_ptr() if pm.nrow else None,
-            qacc_d.data_ptr() if damped else None,
-            B, int(iters), int(damped), stream), "planar_forward")
+
+
+def _cuda_stream(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"K1: unsupported device {q.device}")
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def planar_forward(pm: PlanarModel, q, qd, ctrl, f0, iters: int,
+                   damped: bool):
+    """One forward evaluation over [rows, B] float32 tensors: q and qd
+    [nv, B], ctrl [nu, B], f0 [nrow, B].  Returns (qacc, qfrc_con, f) and,
+    when `damped`, the implicit-damping qacc.
+
+    A CPU tensor takes the plain version, `_forward_math`.  A CUDA tensor
+    launches kernel K1 (csrc/planar_forward.cu) once in its one-evaluation
+    mode, on the current stream, and adds one to
+    `planar_forward.launches` (an empty batch launches nothing); it raises
+    if the kernel cannot launch."""
+    if q.device.type == "cpu":
+        return _forward_math(pm, q, qd, ctrl, f0, iters,
+                             pm.timestep if damped else None)
+    stream = _cuda_stream(q)
+    _check_rows(pm, q, qd, ctrl, f0)
+    out = _kernel().launch(pm, q, qd, ctrl, f0, iters, False, damped, stream)
+    if q.shape[1]:
         planar_forward.launches += 1
-    return (qacc, con, f, qacc_d) if damped else (qacc, con, f)
+    return out
 
 
 planar_forward.launches = 0
+
+
+def planar_control_step(pm: PlanarModel, q, qd, ctrl, f0, iters: int):
+    """One control step (`frame_skip` substeps of RK4 or Euler) over
+    [rows, B] float32 tensors, as `_control_step`: returns (q, qd,
+    qfrc_con, f, (q_ev, qd_ev)).
+
+    A CPU tensor takes `_control_step` over the plain forward.  A CUDA
+    tensor launches kernel K1 once in its control-step mode, on the
+    current stream, and adds one to `planar_control_step.launches` (an
+    empty batch launches nothing); it raises if the kernel cannot launch."""
+    if q.device.type == "cpu":
+        def fwd(q_, qd_, c_, f_, damped):
+            return _forward_math(pm, q_, qd_, c_, f_, iters,
+                                 pm.timestep if damped else None)
+        return _control_step(pm, fwd, q, qd, ctrl, f0)
+    stream = _cuda_stream(q)
+    _check_rows(pm, q, qd, ctrl, f0)
+    out = _kernel().launch(pm, q, qd, ctrl, f0, iters, True, False, stream)
+    if q.shape[1]:
+        planar_control_step.launches += 1
+    return out
+
+
+planar_control_step.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -784,8 +821,8 @@ def planar_physics_step(m: RigidModel, q, qd, ctrl, iters: int = 15,
     """One control step of a planar model over a batch: q, qd [B, nv],
     ctrl [B, nu], f0 [B, nrow] (warm-start row forces, zeros if None).
     Returns (q, qd, qfrc_con, f, (q_ev, qd_ev)), each [B, .], as the JAX
-    engine's `physics_step` under `vmap`.  Every forward evaluation goes
-    through `planar_forward` (kernel K1 on a CUDA tensor)."""
+    engine's `physics_step` under `vmap`.  The step goes through
+    `planar_control_step`: one launch of kernel K1 on a CUDA tensor."""
     pm = planar_model(m)
     if pm is None:
         raise ValueError("model is not planar")
@@ -795,19 +832,16 @@ def planar_physics_step(m: RigidModel, q, qd, ctrl, iters: int = 15,
     def rows(x):
         return x.t().contiguous()
 
-    def fwd(q_, qd_, c_, f_, damped):
-        return planar_forward(pm, q_, qd_, c_, f_, iters, damped)
-
-    q_new, qd_new, con, f, (q_ev, qd_ev) = _control_step(
-        pm, fwd, rows(q), rows(qd), rows(ctrl), rows(f0))
+    q_new, qd_new, con, f, (q_ev, qd_ev) = planar_control_step(
+        pm, rows(q), rows(qd), rows(ctrl), rows(f0), iters)
     return (q_new.t(), qd_new.t(), con.t(), f.t(), (q_ev.t(), qd_ev.t()))
 
 
 def physics_step_auto(m: RigidModel, q, qd, ctrl, iters: int = 15,
                       f0=None):
     """The engine's `physics_step` with the planar path: planar models go
-    through `planar_physics_step` (kernel K1 per forward evaluation on CUDA
-    tensors), every other model through the general engine of
+    through `planar_physics_step` (kernel K1, one launch per control step
+    on CUDA tensors), every other model through the general engine of
     ops/rigid_body.py (kernel K4 per forward evaluation).  Same batched
     arguments and return values either way."""
     if planar_model(m) is not None:

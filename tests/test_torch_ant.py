@@ -36,6 +36,7 @@ from ilswiss_tpu_torch.ops import rigid_body as rb
 from ilswiss_tpu_torch.runtime.loop import (
     OffPolicyConfig, OffPolicyLoop, RunnerState,
 )
+from ilswiss_tpu_torch.testing import float32_chain
 from ilswiss_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -312,8 +313,9 @@ def _jax_iteration_draws(jloop, jrunner):
 @pytest.mark.slow
 def test_fused_training_iteration_matches_jax_loop():
     """One training iteration of SAC-Ant (act, control step, replay write,
-    K gradient steps as one fused chain) from the JAX loop's carried-over
-    RunnerState, warm-start forces [B, 116] included."""
+    K gradient steps as one fused chain with float32 products, as the JAX
+    loop's float32 learner) from the JAX loop's carried-over RunnerState,
+    warm-start forces [B, 116] included."""
     from ilswiss_tpu.algorithms.sac import SAC as JSAC
     from ilswiss_tpu.envs import make_vec as jmake_vec
     from ilswiss_tpu.runtime.loop import OffPolicyConfig as JConfig
@@ -340,7 +342,8 @@ def test_fused_training_iteration_matches_jax_loop():
                                               snapshot.algo_state),
         total_env_steps=int(snapshot.total_env_steps))
     assert tuple(runner.env_state.internal[2].shape) == (NUM_ENVS, 116)
-    runner, metrics = loop.train_epoch(runner, steps_per_epoch=NUM_ENVS)
+    with float32_chain():
+        runner, metrics = loop.train_epoch(runner, steps_per_epoch=NUM_ENVS)
     assert all(not v for v in runner.noise.draws.values())
 
     assert runner.total_env_steps == int(jnext.total_env_steps)

@@ -1,18 +1,26 @@
 """The port's fused K-step SAC chain (ilswiss_tpu_torch/ops/fused_sac.py)
 against the JAX package's Pallas kernel run in interpret mode with float32
 products (ilswiss_tpu/ops/fused_sac.py, as tests/test_fused_sac.py runs
-it), against K eager `train_step` calls of the port (the hand-derived
-backward against autograd), and inside `OffPolicyLoop`.
+it) and with its default bf16 products, against K eager `train_step`
+calls of the port (the hand-derived backward against autograd), and
+inside `OffPolicyLoop`.  Comparisons with float32 references run the
+chain with `matmul_dtype=torch.float32`, as tests/test_fused_sac.py runs
+the JAX chain with `matmul_dtype=jnp.float32`.
 
 On the CPU `fused_sac_chain` takes its plain version; kernel K2 itself is
 held against the plain version on a card in tests/test_torch_gpu.py, and,
 in the last test here, as a CPU build of its CUDA source on host threads
 (ilswiss_tpu_torch/kernels/host_build.py).
 
-Tolerances are the pins of tests/test_fused_sac.py:91-121: parameters and
-targets rtol 2e-4, atol 2e-5; log alpha 1e-5, 1e-6; mu 2e-4, 2e-6; nu
-2e-3, 1e-8; metrics 5e-4, 5e-5.  The loop comparison uses 5e-4, 5e-5 as
-tests/test_fused_sac.py:124-156 does.
+Tolerances (`K2_PINS` of ilswiss_tpu_torch/testing.py, which says why):
+the float32 mode keeps the pins of tests/test_fused_sac.py:91-121
+(parameters and targets rtol 2e-4, atol 2e-5; log alpha 1e-5, 1e-6; mu
+2e-4, 2e-6; nu 2e-3, 1e-8; metrics 5e-4, 5e-5); the bf16 mode against
+the JAX bf16 kernel keeps them but for mu (2e-2, 2e-5) and nu (1e-2,
+1e-8), and the port's float32 mode must fail them there (the control).
+The loop comparison uses 5e-4, 5e-5 as tests/test_fused_sac.py:124-156
+does.  Run as a script, this file prints how much of each bf16 pin the
+two modes use against the JAX bf16 kernel.
 """
 
 import ctypes
@@ -32,6 +40,7 @@ from ilswiss_tpu_torch.envs import make_vec
 from ilswiss_tpu_torch.ops import fused_sac
 from ilswiss_tpu_torch.ops.fused_sac import fused_sac_chain
 from ilswiss_tpu_torch.runtime.loop import OffPolicyConfig, OffPolicyLoop
+from ilswiss_tpu_torch.testing import K2_PINS, float32_chain
 from ilswiss_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -63,28 +72,32 @@ def _jax_numpy(state):
             "log_alpha": s.log_alpha, **{n: opt(getattr(s, n)) for n in OPTS}}
 
 
-def _assert_states_close(got, want):
-    """Two states in the JAX layouts, at the pins of test_fused_sac.py."""
+F32_PINS, BF16_PINS = K2_PINS[torch.float32], K2_PINS[torch.bfloat16]
+
+
+def _assert_states_close(got, want, pins=F32_PINS):
+    """Two states in the JAX layouts, at the pins of test_fused_sac.py or
+    the bf16 pins."""
     for name in ("policy_params", "qf_params", "target_qf_params"):
         jax.tree.map(
             lambda g, w: np.testing.assert_allclose(
-                g, w, rtol=2e-4, atol=2e-5, err_msg=name),
+                g, w, *pins["params"], err_msg=name),
             got[name], want[name])
     np.testing.assert_allclose(got["log_alpha"], want["log_alpha"],
-                               rtol=1e-5, atol=1e-6)
+                               *pins["log_alpha"])
     for name in OPTS:
         assert got[name]["count"] == want[name]["count"], name
         np.testing.assert_allclose(got[name]["mu"], want[name]["mu"],
-                                   rtol=2e-4, atol=2e-6, err_msg=name)
+                                   *pins["mu"], err_msg=name)
         np.testing.assert_allclose(got[name]["nu"], want[name]["nu"],
-                                   rtol=2e-3, atol=1e-8, err_msg=name)
+                                   *pins["nu"], err_msg=name)
 
 
-def _assert_metrics_close(got, want):
+def _assert_metrics_close(got, want, pins=F32_PINS):
     assert set(got) == set(fused_sac.METRIC_NAMES) == set(want)
     for k in want:
         np.testing.assert_allclose(np.asarray(got[k]), np.asarray(want[k]),
-                                   rtol=5e-4, atol=5e-5, err_msg=k)
+                                   *pins["metrics"], err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -117,9 +130,107 @@ def test_plain_chain_matches_jax_kernel(jax_runs, beta_1, reward_scale):
     state = convert.sac_state_from_jax(sac, jstate0)
     state, metrics = fused_sac_chain(
         sac, state, convert.batches_from_numpy(batches, "cpu"),
-        torch.as_tensor(eps_next), torch.as_tensor(eps_new))
+        torch.as_tensor(eps_next), torch.as_tensor(eps_new),
+        matmul_dtype=torch.float32)
     _assert_states_close(convert.sac_state_to_numpy(state), want)
     _assert_metrics_close(convert.metrics_to_numpy(metrics), want_metrics)
+
+
+# obs, action: the JAX tests' shape and humanoid's (348 / 17)
+BF16_CASES = [(OBS, ACT), (348, 17)]
+
+
+def _jax_bf16_run(n_obs, n_act):
+    """The JAX start state, the inputs, and the state and metrics after the
+    JAX kernel's default bf16 products (interpret mode), hidden 32, B 32,
+    K 3."""
+    jsac = JSAC(n_obs, n_act, JSACConfig(), net_size=H, num_hidden_layers=2)
+    jstate = jsac.init(jax.random.PRNGKey(1))
+    batches, eps_next, eps_new = _inputs(8, obs=n_obs, act=n_act)
+    jnew, jmetrics = jax_fused_sac_chain(
+        jsac, jstate, {k: jnp.asarray(v) for k, v in batches.items()},
+        jnp.asarray(eps_next), jnp.asarray(eps_new), interpret=True,
+        matmul_dtype=jnp.bfloat16)
+    return (jax.tree.map(np.asarray, jstate), (batches, eps_next, eps_new),
+            _jax_numpy(jnew), jax.tree.map(np.asarray, jmetrics))
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_runs():
+    return {case: _jax_bf16_run(*case) for case in BF16_CASES}
+
+
+def _port_on_jax_run(run, n_obs, n_act, dtype):
+    """The port's plain chain in `dtype` mode from the JAX run's start
+    state and inputs, as (state, metrics) in the JAX layouts."""
+    jstate0, (batches, eps_next, eps_new) = run[:2]
+    sac = SAC(n_obs, n_act, SACConfig(), net_size=H, num_hidden_layers=2,
+              device="cpu")
+    state = convert.sac_state_from_jax(sac, jstate0)
+    state, metrics = fused_sac_chain(
+        sac, state, convert.batches_from_numpy(batches, "cpu"),
+        torch.as_tensor(eps_next), torch.as_tensor(eps_new),
+        matmul_dtype=dtype)
+    return (convert.sac_state_to_numpy(state),
+            convert.metrics_to_numpy(metrics))
+
+
+def _pin_shares(got, want, got_metrics, want_metrics, pins):
+    """Per group, the largest |got - want| / (atol + rtol |want|): above 1
+    is outside the pin."""
+    groups = {
+        "params": [(got[n], want[n]) for n in ("policy_params", "qf_params",
+                                               "target_qf_params")],
+        "log_alpha": [(got["log_alpha"], want["log_alpha"])],
+        "mu": [(got[o]["mu"], want[o]["mu"]) for o in OPTS],
+        "nu": [(got[o]["nu"], want[o]["nu"]) for o in OPTS],
+        "metrics": [(got_metrics, want_metrics)]}
+    shares = {}
+    for name, pairs in groups.items():
+        rtol, atol = pins[name]
+        shares[name] = max(
+            float(np.max(np.abs(g - w) / (atol + rtol * np.abs(w))))
+            for tree_g, tree_w in pairs
+            for g, w in zip(jax.tree.leaves(tree_g), jax.tree.leaves(tree_w)))
+    return shares
+
+
+@pytest.mark.parametrize("n_obs,n_act", BF16_CASES)
+def test_plain_bf16_chain_matches_jax_bf16_kernel(jax_bf16_runs, n_obs,
+                                                  n_act):
+    """The default mode: the plain chain with bf16 products against the
+    JAX kernel's default bf16 products (interpret mode), hidden 32, B 32,
+    K 3, at the bf16 pins."""
+    run = jax_bf16_runs[n_obs, n_act]
+    got, got_metrics = _port_on_jax_run(run, n_obs, n_act, torch.bfloat16)
+    _assert_states_close(got, run[2], BF16_PINS)
+    _assert_metrics_close(got_metrics, run[3], BF16_PINS)
+
+
+@pytest.mark.parametrize("n_obs,n_act", BF16_CASES)
+def test_float32_mode_fails_the_bf16_pins(jax_bf16_runs, n_obs, n_act):
+    """The control of the test above: the port's float32 mode against the
+    same JAX bf16 run lies outside the bf16 pins in the parameters, mu and
+    nu, so those pins tell a chain that ignores `matmul_dtype` from one
+    that honours it.  (The metrics' pin does not: see testing.py.)"""
+    run = jax_bf16_runs[n_obs, n_act]
+    got, got_metrics = _port_on_jax_run(run, n_obs, n_act, torch.float32)
+    shares = _pin_shares(got, run[2], got_metrics, run[3], BF16_PINS)
+    assert all(shares[g] > 1.0 for g in ("params", "mu", "nu")), shares
+
+
+def test_bf16_products_change_the_update():
+    """The bf16 mode is not the float32 mode under another name."""
+    finals = []
+    for dt in (torch.float32, torch.bfloat16):
+        sac, (state, _) = _port_pair(SACConfig())
+        batches, eps_next, eps_new = _inputs(2)
+        state, _ = fused_sac_chain(
+            sac, state, convert.batches_from_numpy(batches, "cpu"),
+            torch.as_tensor(eps_next), torch.as_tensor(eps_new),
+            matmul_dtype=dt)
+        finals.append(state.qf.output_bias.detach().clone())
+    assert not torch.equal(finals[0], finals[1])
 
 
 def _port_pair(cfg, hidden=H, layers=2, count=0, log_std_bias=None):
@@ -175,7 +286,7 @@ def test_plain_chain_matches_eager_train_steps(case):
     log_alpha0 = float(chained.log_alpha.detach())
 
     chained, got_metrics = fused_sac_chain(sac, chained, batches, eps_next,
-                                           eps_new)
+                                           eps_new, torch.float32)
     stepped, want_metrics = _eager(sac, stepped, batches, eps_next, eps_new)
 
     got = convert.sac_state_to_numpy(chained)
@@ -270,16 +381,18 @@ def _loop(use_fused_chain):
 
 
 def test_fused_loop_matches_eager_loop():
-    """OffPolicyLoop with `use_fused_chain=True` reproduces the eager
-    loop's state and metrics after two training iterations from the same
-    seed: same draws in the same order, one chain per iteration."""
+    """OffPolicyLoop with `use_fused_chain=True` (in float32 mode)
+    reproduces the eager loop's state and metrics after two training
+    iterations from the same seed: same draws in the same order, one chain
+    per iteration."""
     finals = []
     for flag in (False, True):
         loop = _loop(flag)
         before = fused_sac_chain.launches
-        runner = loop.warmup(loop.init(7))
-        runner, metrics = loop.train_epoch(runner,
-                                           steps_per_epoch=2 * NUM_ENVS)
+        with float32_chain():
+            runner = loop.warmup(loop.init(7))
+            runner, metrics = loop.train_epoch(runner,
+                                               steps_per_epoch=2 * NUM_ENVS)
         assert fused_sac_chain.launches == before   # CPU: the plain version
         finals.append((runner, metrics))
     (eager, eager_metrics), (fused, fused_metrics) = finals
@@ -345,7 +458,8 @@ def test_kernel_inputs_accepts_the_small_shapes():
 
 @pytest.mark.parametrize("fault", ["float64", "non_contiguous", "bad_shape",
                                    "batch_over_limit", "actions_over_limit",
-                                   "layers_over_limit", "width_over_limit"])
+                                   "layers_over_limit", "width_over_limit",
+                                   "matmul_dtype"])
 def test_kernel_inputs_rejects(fault):
     """The checks run before anything is built, so they run without a
     card: the wrapper raises ValueError instead of launching."""
@@ -364,8 +478,21 @@ def test_kernel_inputs_rejects(fault):
         assert not batches["obs"].is_contiguous()
     elif fault == "bad_shape":
         batches["reward"] = batches["reward"][:, :, None]
+    elif fault == "matmul_dtype":
+        with pytest.raises(ValueError):
+            fused_sac_chain(sac, state, batches, eps_next, eps_new,
+                            matmul_dtype=torch.float16)
+        return
     with pytest.raises(ValueError):
         fused_sac._kernel_inputs(sac, state, batches, eps_next, eps_new)
+
+
+def test_kernel_takes_humanoid_actions_and_refuses_33():
+    """K2 takes up to 32 action dimensions (humanoid has 17)."""
+    assert fused_sac.MAX_ACTION == 32
+    fused_sac._kernel_inputs(*_kernel_case(act=17))
+    with pytest.raises(ValueError):
+        fused_sac._kernel_inputs(*_kernel_case(act=33))
 
 
 # ---- the CUDA source itself, compiled for the CPU ---------------------------
@@ -378,7 +505,17 @@ HOST_CASES = {
                                   5),
     "one_layer_fixed_alpha": (4, 1, 20, 1, 9, 2,
                               SACConfig(train_alpha=False), 0),
+    # humanoid's 17 action dimensions, 16-byte loads of 348-wide rows
+    "actions_17": (348, 17, 32, 2, 16, 2, SACConfig(), 0),
 }
+MODES = {"bf16": torch.bfloat16, "float32": torch.float32}
+# every case in float32 mode; in bf16 mode all but the three-layer one,
+# whose ragged tile edges the other cases also reach (the shim's stand-in
+# of the tensor-core product costs two warp barriers a call on CPU threads)
+HOST_RUNS = [
+    pytest.param(case, mode, id=case if mode == "float32" else f"{case}-bf16")
+    for case in sorted(HOST_CASES) for mode in MODES
+    if not (mode == "bf16" and case == "ragged_tiles_three_layers")]
 
 
 @pytest.fixture(scope="module")
@@ -390,12 +527,14 @@ def host_lib():
         ctypes.CDLL(str(build_host("fused_sac", "SacArgs"))))
 
 
-@pytest.mark.parametrize("case", sorted(HOST_CASES))
-def test_kernel_source_on_host_threads_matches_plain(host_lib, case):
+@pytest.mark.parametrize("case,mode", HOST_RUNS)
+def test_kernel_source_on_host_threads_matches_plain(host_lib, case, mode):
     """csrc/fused_sac.cu, compiled by g++ against the host shim and run on
     three blocks of CPU threads through the wrapper's own launch code,
-    against the plain chain: the kernel's indexing, phases and barriers,
-    without a card.  Tolerances as on the card."""
+    against the plain chain in the same mode: the kernel's indexing,
+    staging, phases and barriers without a card, and in bf16 mode the
+    fragment layout of its tensor-core product through the shim's
+    stand-in.  Tolerances as on the card."""
     obs, act, hidden, layers, b, k, cfg, count0 = HOST_CASES[case]
     sac = SAC(obs, act, cfg, net_size=hidden, num_hidden_layers=layers,
               device="cpu")
@@ -410,13 +549,27 @@ def test_kernel_source_on_host_threads_matches_plain(host_lib, case):
     streams, tensors = fused_sac._kernel_inputs(sac, states[0], batches,
                                                 eps_next, eps_new)
     table = fused_sac._launch(host_lib, sac, states[0], streams, tensors,
-                              None)
+                              None, MODES[mode])
     fused_sac._advance_counts(states[0], k, cfg.train_alpha)
     got_metrics = {n: table[:, j].numpy()
                    for j, n in enumerate(fused_sac.METRIC_NAMES)}
     want, want_metrics = fused_sac.fused_sac_chain_plain(
-        sac, states[1], batches, eps_next, eps_new)
+        sac, states[1], batches, eps_next, eps_new, MODES[mode])
     _assert_states_close(convert.sac_state_to_numpy(states[0]),
                          convert.sac_state_to_numpy(want))
     _assert_metrics_close(got_metrics,
                           convert.metrics_to_numpy(want_metrics))
+
+
+if __name__ == "__main__":
+    # the readings behind the bf16 pins: how much of each pin the port's
+    # two modes use against the JAX bf16 kernel
+    jax.config.update("jax_platforms", "cpu")
+    for case in BF16_CASES:
+        run = _jax_bf16_run(*case)
+        for dtype in (torch.bfloat16, torch.float32):
+            got, got_metrics = _port_on_jax_run(run, *case, dtype)
+            shares = _pin_shares(got, run[2], got_metrics, run[3], BF16_PINS)
+            print(f"obs {case[0]} / action {case[1]}, port in {dtype} "
+                  f"against JAX bf16, share of each bf16 pin used: "
+                  + ", ".join(f"{n} {v:.3g}" for n, v in shares.items()))

@@ -149,3 +149,36 @@ def test_resolve_device_needs_an_explicit_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device()
+
+
+def test_fused_policy_plain_matches_jax_kernel_at_humanoid_width():
+    """K3's plain version at humanoid's acting shape, 348 -> 256 -> 256 ->
+    17 + 17, B = 16, against the Pallas kernel in interpret mode (TOL)."""
+    jp = JPolicy(action_dim=17, hidden_sizes=(256, 256))
+    obs = np.asarray(jax.random.normal(jax.random.PRNGKey(2), (16, 348)))
+    params = jp.init(jax.random.PRNGKey(3), obs)
+    want_mean, want_log_std = jfused(params, obs, interpret=True)
+    policy = _policy_from_flax(params, 348, 17, (256, 256))
+    mean, log_std = fused_mlp.fused_gaussian_policy_forward(
+        policy, torch.as_tensor(obs))
+    np.testing.assert_allclose(mean.numpy(), want_mean, **TOL)
+    np.testing.assert_allclose(log_std.numpy(), want_log_std, **TOL)
+
+
+@pytest.mark.parametrize("obs_size,hidden,ok", [
+    (348, (256, 256), True), (1024, (1024,), True), (1025, (64,), False),
+    (11, (1025,), False)])
+def test_fused_policy_kernel_widths(obs_size, hidden, ok):
+    """K3 takes every layer up to 1024 wide, the input included, and
+    refuses wider ones before anything is built."""
+    policy = TanhGaussianPolicy(obs_size, 3, hidden, torch.Generator())
+    weights, biases = fused_mlp._layers(policy)
+    weights = [w.detach() for w in weights]
+    biases = [b.detach() for b in biases]
+    obs = torch.zeros(2, obs_size)
+    if ok:
+        assert fused_mlp._kernel_dims(weights, biases, obs) == \
+            [obs_size] + list(hidden)
+    else:
+        with pytest.raises(ValueError):
+            fused_mlp._kernel_dims(weights, biases, obs)

@@ -6,7 +6,14 @@ Tolerances: float64 forward rtol 1e-9, atol 1e-8 (the pin of
 tests/test_planar_dynamics.py:50-56: the same formulas in the same order);
 float32 control steps rtol 2e-4, atol 5e-3 (the pin of :97-98: 16
 evaluations of 15 Gauss-Seidel sweeps each in another summation order).
+Kernel K1's CUDA source, compiled for the CPU and run on host threads
+(ilswiss_tpu_torch/kernels/host_build.py), is held to the same float32
+pin against the plain versions: its sin, cos and pow are the C library's,
+not PyTorch's.
 """
+
+import ctypes
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +182,90 @@ def test_plain_float32_tracks_float64(name):
                            f0.float(), 15, h)
     for g32, w64 in zip(got, want):
         np.testing.assert_allclose(g32.double().numpy(), w64.numpy(), **F32)
+
+
+# ---- kernel K1's CUDA source, compiled for the CPU -------------------------
+
+PLANAR = ["hopper", "walker", "halfcheetah", "invertedpendulum"]
+
+
+@pytest.fixture(scope="module")
+def host_kernel():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the CUDA source for the CPU")
+    from ilswiss_tpu_torch.kernels.host_build import build_host
+    return pd._PlanarKernel(ctypes.CDLL(str(build_host("planar_forward",
+                                                       "PlanarArgs"))))
+
+
+def _rows_state(m, B, seed):
+    """[rows, B] float32 inputs as chip_smoke.py draws them."""
+    rng = np.random.RandomState(seed)
+    q = m.qpos0[:, None] + 0.1 * rng.randn(m.nq, B)
+    qd = 0.3 * rng.randn(m.nv, B)
+    ctrl = np.clip(rng.randn(m.nu, B), -1, 1)
+    f0 = 0.2 * np.abs(rng.randn(m.nrow, B))
+    return [torch.tensor(x, dtype=torch.float32) for x in (q, qd, ctrl, f0)]
+
+
+@pytest.mark.parametrize("mode", ["control_step", "evaluation"])
+@pytest.mark.parametrize("name", PLANAR)
+def test_kernel_source_on_host_threads_matches_plain(host_kernel, name,
+                                                     mode):
+    """csrc/planar_forward.cu on three blocks of CPU threads through the
+    wrapper's own launch code (B = 7: several envs a block, one block
+    ragged) against `_control_step` over `_forward_math`, or against one
+    `_forward_math` evaluation (the damped one for halfcheetah), F32."""
+    m = _model(name)
+    pm = pd.planar_model(m)
+    q, qd, ctrl, f0 = _rows_state(m, 7, 4)
+    if mode == "control_step":
+        got = host_kernel.launch(pm, q, qd, ctrl, f0, 15, True, False, None)
+        want = pd.planar_control_step(pm, q, qd, ctrl, f0, 15)
+        got = [got[0], got[1], got[2], got[3], *got[4]]
+        want = [want[0], want[1], want[2], want[3], *want[4]]
+    else:
+        damped = pm.integrator == "euler"
+        got = host_kernel.launch(pm, q, qd, ctrl, f0, 15, False, damped, None)
+        want = pd._forward_math(pm, q, qd, ctrl, f0, 15,
+                                pm.timestep if damped else None)
+        assert len(got) == len(want) == (4 if damped else 3)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **F32)
+
+
+@pytest.mark.parametrize("step", [True, False],
+                         ids=["control_step", "evaluation"])
+def test_kernel_launch_of_an_empty_batch_returns_empty_outputs(host_kernel,
+                                                               step):
+    """B = 0 calls nothing (the kernel's entry refuses B < 1) and gives
+    [rows, 0] outputs."""
+    m = _model("hopper")
+    pm = pd.planar_model(m)
+    got = host_kernel.launch(pm, *_rows_state(m, 0, 0), 15, step, False,
+                             None)
+    if step:
+        got = [got[0], got[1], got[2], got[3], *got[4]]
+        rows = [pm.nv, pm.nv, pm.nv, pm.nrow, pm.nv, pm.nv]
+    else:
+        rows = [pm.nv, pm.nv, pm.nrow]
+    assert [tuple(g.shape) for g in got] == [(r, 0) for r in rows]
+
+
+def test_control_step_on_cpu_is_the_plain_integrator():
+    """On CPU tensors `planar_physics_step` is `_control_step` over
+    `_forward_math`, bit for bit, and launches nothing."""
+    m = _model("hopper")
+    pm = pd.planar_model(m)
+    q, qd, ctrl, f0 = _rows_state(m, 3, 5)
+    before = (pd.planar_forward.launches, pd.planar_control_step.launches)
+    got = pd.planar_physics_step(m, q.t(), qd.t(), ctrl.t(), f0=f0.t())
+
+    def fwd(q_, qd_, c_, f_, damped):
+        return pd._forward_math(pm, q_, qd_, c_, f_, 15, None)
+
+    want = pd._control_step(pm, fwd, q, qd, ctrl, f0)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g.t(), w)
+    assert (pd.planar_forward.launches,
+            pd.planar_control_step.launches) == before

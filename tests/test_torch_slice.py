@@ -22,6 +22,7 @@ from ilswiss_tpu_torch.runtime.evaluator import make_evaluator
 from ilswiss_tpu_torch.runtime.loop import (
     OffPolicyConfig, OffPolicyLoop, RunnerState,
 )
+from ilswiss_tpu_torch.testing import float32_chain
 from ilswiss_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -131,8 +132,10 @@ def test_training_iteration_matches_jax_loop():
 @pytest.mark.slow
 def test_fused_training_iteration_matches_jax_loop():
     """The same iteration with the port's K gradient steps taken as one
-    fused chain; the JAX side stays the scan of `train_step`."""
-    _iteration_against_jax(use_fused_chain=True)
+    fused chain, with float32 products, as the float32 learner it is
+    compared with; the JAX side stays the scan of `train_step`."""
+    with float32_chain():
+        _iteration_against_jax(use_fused_chain=True)
 
 
 def _iteration_against_jax(use_fused_chain):
