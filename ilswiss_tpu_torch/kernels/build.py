@@ -21,7 +21,9 @@ version, so `-fmad=false` would make the two differ more, not less.  The
 Gauss-Seidel solve (`pgs`) keeps it on as well: its dot products are reduced
 across a warp in another order than the plain version's sums whatever the
 flag, and the tolerance it is held to covers both.
-`build_all` starts one `nvcc` per source, all at once.
+`build_all` starts one `nvcc` per source, all at once;
+`build_variants` builds a source with preprocessor definitions (another
+launch layout) or from another checkout, for `kernels/redesign_sweep.py`.
 """
 
 from __future__ import annotations
@@ -64,41 +66,61 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc was not found; the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+def _flags(src: Path, defines=()) -> tuple[str, ...]:
+    return (NVCC_FLAGS + EXTRA_FLAGS.get(src.stem, ())
+            + tuple(f"-D{d}" for d in defines))
+
+
+def _target(label: str, src: Path, flags) -> Path:
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{label}-{digest.hexdigest()[:12]}.so"
+
+
+def _build(jobs) -> list[Built]:
+    """Build each (label, source, flags) that has no current library, one
+    `nvcc` process per job, all running together.  Raises on a failed
+    build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: list[Built] = []
+    running = []
+    for label, src, flags in jobs:
+        target = _target(label, src, flags)
+        log_path = target.with_suffix(".log")
+        if target.exists():
+            log = log_path.read_text() if log_path.exists() else ""
+            out.append(Built(label, target, 0.0, log))
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((label, target, tmp, log_path, proc,
+                        time.perf_counter()))
+    for label, target, tmp, log_path, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
+        os.replace(tmp, target)
+        log_path.write_text(log)
+        out.append(Built(label, target, seconds, log))
+    return out
 
 
 def build_all(names=SOURCES) -> dict[str, Built]:
     """Build every named source that has no current library, one `nvcc`
     process per source, all running together.  Raises on a failed build."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out: dict[str, Built] = {}
-    running = []
-    for name in names:
-        target = _target(name)
-        log_path = target.with_suffix(".log")
-        if target.exists():
-            log = log_path.read_text() if log_path.exists() else ""
-            out[name] = Built(name, target, 0.0, log)
-            continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
-               str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running.append((name, target, tmp, log_path, proc, time.perf_counter()))
-    for name, target, tmp, log_path, proc, t0 in running:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(tmp, target)
-        log_path.write_text(log)
-        out[name] = Built(name, target, seconds, log)
-    return out
+    built = _build([(name, CSRC / f"{name}.cu", _flags(CSRC / f"{name}.cu"))
+                    for name in names])
+    return {b.name: b for b in built}
+
+
+def build_variants(variants) -> list[Built]:
+    """For measurement only: each (label, source path, preprocessor
+    definitions such as "PGS_LANES=8") built with its source's flags plus
+    the definitions, all in parallel, in the order given."""
+    return _build([(label, Path(src), _flags(Path(src), defines))
+                   for label, src, defines in variants])
 
 
 def load(name: str) -> ctypes.CDLL:

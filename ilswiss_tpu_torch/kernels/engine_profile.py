@@ -9,12 +9,23 @@ prints: the device launches of one `forward` and their summed device time
 (CUDA events around warm calls), the wall time of the engine's pieces
 (kinematics, linearization, bias, rows, Cholesky, W), kernel K4's time
 alone on that forward's own rows (and on the rows of B = 1024 and 4096
-envs, where several warps share an SM), and the ten kernels with the most
+envs, where several envs share an SM), and the ten kernels with the most
 device time.  It builds `csrc/pgs.cu` first and needs `nvcc`.
+
+    python3 -m ilswiss_tpu_torch.kernels.engine_profile --active
+
+prints only how many of the engine's rows are active (gap or limit
+violated, the rows K4 has to walk) for ant and humanoid at B = 128: at
+`grounded_state`, and at every control step of the main path's warmup
+(`make_vec` with the loop's own draws from seed 0, uniform random
+actions), as the mean over envs, the max over envs and the share of nr.
+It builds nothing; with `--device cpu` it runs on the CPU (for a small
+`--envs` and `--steps`).
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 
@@ -54,25 +65,96 @@ def grounded_state(m, name: str, B: int, seed: int, device,
                  for x in (q, qd, ctrl, f0))
 
 
+def engine_rows(m, name: str, envs: int, device, iters: int = 15):
+    """The arguments (J, W, Rreg, b, D, active, f0) that one `forward` of
+    `envs` grounded envs hands its Gauss-Seidel solve: the engine's own rows
+    (`_rows_from`) and `_solve_rows`' own W, Rreg, b and D."""
+    from ilswiss_tpu_torch.ops import rigid_body as rb
+    q, qd, ctrl, f0 = grounded_state(m, name, envs, 0, device)
+    seen = []
+
+    def record(J, W, Rreg, b, D, active, f0_, iters_):
+        seen.append((J, W, Rreg, b, D, active, f0_))
+        return torch.zeros_like(f0_)
+    rb.forward(m, q, qd, ctrl, iters, f0, solve=record)
+    return seen[0]
+
+
 def _k4_alone(m, name: str, envs: int, dev, iters: int):
     """Kernel K4's time on the rows that one forward of `envs` grounded
     envs sets up: (ms, active rows, rows, W's strides)."""
     from ilswiss_tpu_torch.ops import pgs
+    args = engine_rows(m, name, envs, dev, iters)
+    ms = _time_ms(lambda: pgs.pgs_solve(*args, iters), 50)
+    return ms, int(args[5].sum()), args[5].numel(), tuple(args[1].stride())
+
+
+def active_rows(m, q, qd) -> torch.Tensor:
+    """The engine's active-row mask [B, nr] at (q, qd): the rows of the
+    first `forward` of a control step from that state."""
     from ilswiss_tpu_torch.ops import rigid_body as rb
-    q, qd, _, f0 = grounded_state(m, name, envs, 0, dev)
-    lin = rb._linearization(m, q)
-    M, _ = rb._mass_from(m, lin, q.dtype)
-    J, aref, d, active = rb._rows_from(m, lin, q, qd)
-    W = rb._cho_solve(torch.linalg.cholesky(M), J.transpose(1, 2))
-    dsafe = torch.clamp(d, 1e-4, 1.0 - 1e-6)
-    Rreg = (1.0 - dsafe) / dsafe * m.consts(q.dtype, dev).row_diag
-    D = torch.sum(J * W.transpose(1, 2), -1) + Rreg
-    ms = _time_ms(lambda: pgs.pgs_solve(J, W, Rreg, aref, D, active, f0,
-                                        iters), 50)
-    return ms, int(active.sum()), active.numel(), tuple(W.stride())
+    return rb._rows_from(m, rb._linearization(m, q), q, qd)[3]
+
+
+def _census(active: torch.Tensor) -> tuple[float, int, int]:
+    """(mean over envs, max over envs, nr) of an active mask [B, nr]."""
+    per_env = active.sum(1)
+    return float(per_env.float().mean()), int(per_env.max()), active.shape[1]
+
+
+def active_census(name: str, envs: int, steps: int, device) -> dict:
+    """Active-row counts of `name` at `grounded_state` and along `steps`
+    warmup control steps of the main path (seed 0, the loop's draws):
+    {"grounded": (mean, max, nr), "steps": [(mean, max, nr), ...]}, the
+    k-th entry of "steps" taken at the state after k control steps."""
+    from ilswiss_tpu_torch.envs import make_vec
+    from ilswiss_tpu_torch.runtime.loop import Noise
+    vec = make_vec(name, envs, device=device)
+    m = vec.env.model
+    q, qd, _, _ = grounded_state(m, name, envs, 0, device)
+    out = {"grounded": _census(active_rows(m, q, qd)), "steps": []}
+    noise = Noise(1, device)      # OffPolicyLoop.init(0)'s draws
+    state = vec.reset(noise.reset(vec.env, envs))
+    shape = (envs, vec.env.action_size)
+    with torch.no_grad():
+        for _ in range(steps + 1):
+            q, qd, _ = state.internal
+            out["steps"].append(_census(active_rows(m, q, qd)))
+            state, _ = vec.step(state, noise.warmup_action(shape),
+                                noise.reset(vec.env, envs))
+    return out
+
+
+def print_census(envs: int, steps: int, device) -> None:
+    for name in ("ant", "humanoid"):
+        c = active_census(name, envs, steps, device)
+        mean, mx, nr = c["grounded"]
+        print(f"{name}, B = {envs}, nr {nr}: grounded_state: mean "
+              f"{mean:.2f} active rows an env, max {mx}, share "
+              f"{mean / nr:.4f}")
+        seq = c["steps"]
+        for k in sorted({1, 8, min(39, steps), steps}):
+            if k < len(seq):
+                mean, mx, _ = seq[k]
+                print(f"  after {k} warmup control steps: mean {mean:.2f}, "
+                      f"max {mx}, share {mean / nr:.4f}")
+        means = [s[0] for s in seq[1:]]
+        if means:
+            print(f"  over control steps 1..{steps}: mean {np.mean(means):.2f}"
+                  f" (share {np.mean(means) / nr:.4f}), largest max "
+                  f"{max(s[1] for s in seq[1:])}")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--active", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--envs", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=39)
+    opts = ap.parse_args()
+    if opts.active and opts.device == "cpu":
+        print_census(opts.envs, opts.steps, torch.device("cpu"))
+        return 0
     if not torch.cuda.is_available():
         print("engine_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -88,6 +170,9 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if opts.active:
+        print_census(opts.envs, opts.steps, torch.device(opts.device))
+        return 0
     build.build_all(("pgs",))
     dev, B, iters = torch.device("cuda"), 128, 15
 

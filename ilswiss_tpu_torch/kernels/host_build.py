@@ -8,11 +8,13 @@ float name[];` into the block's dynamic shared memory (sized by the
 launch), appends a `cudaLaunchCooperativeKernel` that runs the kernel on
 one `std::thread` per CUDA thread (the shim's `cudaLaunchKernel` goes the
 same way, so `build_host("pgs", "PgsArgs")` and
-`build_host("planar_forward", "PlanarArgs")` work alike), and compiles the
+`build_host("planar_forward", "PlanarArgs")` work alike; a cluster launch
+through `cudaLaunchKernelEx`, as in `build_host("fused_mlp", "MlpArgs")`,
+runs one thread block cluster at a time, in the shim itself), and compiles the
 result with `g++ -std=c++20` against the headers in `host_shim/` into
 `build/host/`.  The shim defines `ILSWISS_HOST_SHIM` and stands in for
 what a source keeps under `#ifndef ILSWISS_HOST_SHIM` (K2's bf16
-rounding, `mma.sync` and `cp.async`).  The library has the source's
+rounding, `mma.sync`, and K2's and K3's `cp.async`).  The library has the source's
 own C interface, so `ctypes` loads it like the real one and the wrapper's
 launch code can drive it with CPU tensors.  It is for small sizes (a few
 blocks of 256 threads, barriers through the OS) and says nothing about
@@ -70,9 +72,10 @@ cudaError_t cudaLaunchCooperativeKernel(void* f, dim3 grid, dim3 block,
 """
 
 
-def build_host(name: str, args_struct: str) -> Path:
+def build_host(name: str, args_struct: str, sms: int = 3) -> Path:
     """The CPU library of `csrc/<name>.cu`, whose one kernel takes one
-    `args_struct` by value.  Raises if `g++` is missing or fails."""
+    `args_struct` by value, on a shim that reports `sms` SMs.  Raises if
+    `g++` is missing or fails."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ was not found")
@@ -84,11 +87,12 @@ def build_host(name: str, args_struct: str) -> Path:
         r"__shared__ (?:__align__\(16\) )?float (\w+)\[(.+?)\];",
         r'float* \1 = host_shared("\1", (\2));', src)
     HOST_DIR.mkdir(parents=True, exist_ok=True)
-    cpp = HOST_DIR / f"{name}_host.cpp"
+    cpp = HOST_DIR / f"{name}_host{sms}.cpp"
     cpp.write_text(src + _TRAILER.replace("ARGS", args_struct))
-    lib = HOST_DIR / f"lib{name}_host.so"
+    lib = HOST_DIR / f"lib{name}_host{sms}.so"
     cmd = [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-           f"-I{SHIM}", "-o", str(lib), str(cpp)]
+           f"-I{SHIM}", f"-DILSWISS_SHIM_SMS={sms}", "-o", str(lib),
+           str(cpp)]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"g++ failed for {name}.cu:\n{done.stderr}")

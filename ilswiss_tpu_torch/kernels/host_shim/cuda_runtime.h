@@ -30,6 +30,10 @@ using std::min;
 #define __align__(x) alignas(x)
 
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -42,7 +46,10 @@ enum cudaError_t {
   cudaErrorCooperativeLaunchTooLarge = 720
 };
 enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrCooperativeLaunch = 95 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 11
+};
 
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error"
@@ -51,6 +58,10 @@ inline const char* cudaGetErrorString(cudaError_t e) {
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaFuncSetAttribute(const void*, int, int) {
+  return cudaSuccess;
+}
+template <class... Args>
+cudaError_t cudaFuncSetAttribute(void (*)(Args...), int, int) {
   return cudaSuccess;
 }
 inline unsigned __float_as_uint(float x) {
@@ -63,10 +74,14 @@ inline float __uint_as_float(unsigned u) {
   std::memcpy(&x, &u, 4);
   return x;
 }
-// the "SM count" is the number of blocks to run: three, an odd number, so
-// that round-robin dealing of work to blocks wraps unevenly
+// the "SM count" is the number of blocks to run: by default three, an odd
+// number, so that round-robin dealing of work to blocks wraps unevenly; a
+// build may set the H100's 132 to take the launch choices the card takes
+#ifndef ILSWISS_SHIM_SMS
+#define ILSWISS_SHIM_SMS 3
+#endif
 inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
-  *v = attr == cudaDevAttrMultiProcessorCount ? 3 : 1;
+  *v = attr == cudaDevAttrMultiProcessorCount ? ILSWISS_SHIM_SMS : 1;
   return cudaSuccess;
 }
 template <class T>
@@ -116,6 +131,44 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   host_block->warp_bar[w]->arrive_and_wait();
   return r;
 }
+
+// the other warp collectives the kernels use, through the same buffer
+inline float __shfl_down_sync(unsigned, float v, unsigned delta) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  host_block->warp_buf[w][l] = v;
+  host_block->warp_bar[w]->arrive_and_wait();
+  const float r = l + delta < 32 ? host_block->warp_buf[w][l + delta] : v;
+  host_block->warp_bar[w]->arrive_and_wait();
+  return r;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int w = threadIdx.x / 32;
+  host_block->warp_buf[w][threadIdx.x % 32] = v;
+  host_block->warp_bar[w]->arrive_and_wait();
+  const float r = host_block->warp_buf[w][src & 31];
+  host_block->warp_bar[w]->arrive_and_wait();
+  return r;
+}
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const int w = threadIdx.x / 32;
+  host_block->warp_buf[w][threadIdx.x % 32] = pred ? 1.f : 0.f;
+  host_block->warp_bar[w]->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i)
+    if (host_block->warp_buf[w][i] != 0.f) r |= 1u << i;
+  host_block->warp_bar[w]->arrive_and_wait();
+  return r;
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  const int w = threadIdx.x / 32;
+  host_block->warp_buf[w][threadIdx.x % 32] = static_cast<float>(v);
+  host_block->warp_bar[w]->arrive_and_wait();
+  float r = host_block->warp_buf[w][0];
+  for (int i = 1; i < 32; ++i) r = std::max(r, host_block->warp_buf[w][i]);
+  host_block->warp_bar[w]->arrive_and_wait();
+  return static_cast<int>(r);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 // `extern __shared__ float name[];` becomes
 // `float* name = host_dynamic_shared();`
@@ -180,4 +233,69 @@ inline void mma_bf16_16816(float c[4], const unsigned a[4],
     for (int k = 0; k < 16; ++k) s += A[row][k] * Bm[k][col];
     c[j] = s;
   }
+}
+
+// Thread block clusters (cooperative_groups.h reads these): a cluster
+// launch runs one cluster at a time, all its blocks' threads together, so
+// `map_shared_rank` can reach a neighbour's dynamic shared memory and
+// `cluster.sync()` is one barrier over the cluster's threads.
+struct HostCluster {
+  std::vector<HostBlock>* blocks;
+  unsigned size;
+  std::barrier<>* bar;
+};
+inline thread_local HostCluster* host_cluster = nullptr;
+
+enum { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  int id;
+  struct {
+    struct { unsigned x, y, z; } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+
+template <class A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(A), A a) {
+  unsigned cs = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cs = cfg->attrs[i].val.clusterDim.x;
+  const dim3 grid = cfg->gridDim, block = cfg->blockDim;
+  if (cs < 1 || grid.x % cs != 0) return cudaErrorInvalidValue;
+  for (unsigned c0 = 0; c0 < grid.x; c0 += cs) {
+    std::vector<HostBlock> blocks(cs);
+    std::barrier<> bar(cs * block.x);
+    HostCluster cluster{&blocks, cs, &bar};
+    for (auto& b : blocks) {
+      b.bar.reset(new std::barrier<>(block.x));
+      b.dynamic.resize(cfg->dynamicSmemBytes / sizeof(float4) + 1);
+      for (unsigned w = 0; w < block.x / 32; ++w) {
+        b.warp_bar.emplace_back(new std::barrier<>(32));
+        b.warp_buf.emplace_back(32);
+        b.warp_frag.emplace_back(32 * 6);
+      }
+    }
+    std::vector<std::thread> threads;
+    for (unsigned bi = 0; bi < cs; ++bi)
+      for (unsigned ti = 0; ti < block.x; ++ti)
+        threads.emplace_back([&, bi, ti] {
+          threadIdx = {ti, 0, 0};
+          blockIdx = {c0 + bi, 0, 0};
+          gridDim = {grid.x, 1, 1};
+          blockDim = {block.x, 1, 1};
+          host_block = &blocks[bi];
+          host_cluster = &cluster;
+          kernel(a);
+        });
+    for (auto& t : threads) t.join();
+  }
+  return cudaSuccess;
 }

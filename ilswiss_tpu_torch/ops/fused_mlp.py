@@ -50,15 +50,27 @@ def _kernel_dims(weights, biases, obs: torch.Tensor) -> list[int]:
         raise ValueError("obs must be a contiguous [B, obs_size] float32 "
                          "tensor")
     dims = [obs.shape[1]] + [w.shape[0] for w in weights[:num_hidden]]
-    if not 1 <= num_hidden <= MAX_HIDDEN or max(dims) > MAX_WIDTH:
-        raise ValueError(f"K3 takes 1..{MAX_HIDDEN} trunk layers of width "
-                         f"<= {MAX_WIDTH}; got widths {dims}")
+    if (not 1 <= num_hidden <= MAX_HIDDEN or max(dims) > MAX_WIDTH
+            or weights[-1].shape[0] > MAX_WIDTH):
+        raise ValueError(f"K3 takes 1..{MAX_HIDDEN} trunk layers and an "
+                         f"action size of width <= {MAX_WIDTH}; got widths "
+                         f"{dims}, action size {weights[-1].shape[0]}")
     for t in weights + biases:
         if (t.device != obs.device or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError("policy parameters must be contiguous float32 "
                              f"tensors on {obs.device}")
     return dims
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_policy_forward.argtypes = [
+        p, p, p, p, i, i, ctypes.c_float, ctypes.c_float, p, p, i, p]
+    lib.fused_policy_forward.restype = ctypes.c_int
+    lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
+    lib.fused_mlp_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 _LIB: ctypes.CDLL | None = None
@@ -68,16 +80,29 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         from ilswiss_tpu_torch.kernels.build import load
-        lib = load("fused_mlp")
-        p = ctypes.c_void_p
-        lib.fused_policy_forward.argtypes = [
-            p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, p, p, ctypes.c_int, p]
-        lib.fused_policy_forward.restype = ctypes.c_int
-        lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
-        lib.fused_mlp_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = _declare(load("fused_mlp"))
     return _LIB
+
+
+def _launch(lib: ctypes.CDLL, weights, biases, obs: torch.Tensor,
+            dims: list[int], stream) -> tuple[torch.Tensor, torch.Tensor]:
+    """One call of the library's `fused_policy_forward` on checked inputs
+    (B >= 1); returns (mean, log_std).  `lib` is the CUDA library, or in a
+    test the CPU build of the same source (kernels/host_build.py)."""
+    B, A = obs.shape[0], weights[-1].shape[0]
+    mean = torch.empty((B, A), dtype=torch.float32, device=obs.device)
+    log_std = torch.empty_like(mean)
+    n = len(weights)
+    w_ptrs = (ctypes.c_void_p * n)(*[w.data_ptr() for w in weights])
+    b_ptrs = (ctypes.c_void_p * n)(*[b.data_ptr() for b in biases])
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    err = lib.fused_policy_forward(
+        obs.data_ptr(), w_ptrs, b_ptrs, c_dims, n - 2, A, LOG_SIG_MIN,
+        LOG_SIG_MAX, mean.data_ptr(), log_std.data_ptr(), B, stream)
+    if err != 0:
+        raise RuntimeError("fused_policy_forward: "
+                           + lib.fused_mlp_error_string(err).decode())
+    return mean, log_std
 
 
 @torch.no_grad()
@@ -96,26 +121,14 @@ def fused_gaussian_policy_forward(policy: TanhGaussianPolicy,
     if obs.device.type != "cuda":
         raise ValueError(f"unsupported device {obs.device}")
     dims = _kernel_dims(weights, biases, obs)
-    num_hidden = len(weights) - 2
-    B, A = obs.shape[0], weights[-1].shape[0]
-    mean = torch.empty((B, A), dtype=torch.float32, device=obs.device)
-    log_std = torch.empty_like(mean)
-    if B > 0:
-        lib = _lib()
-        n = len(weights)
-        w_ptrs = (ctypes.c_void_p * n)(*[w.data_ptr() for w in weights])
-        b_ptrs = (ctypes.c_void_p * n)(*[b.data_ptr() for b in biases])
-        c_dims = (ctypes.c_int * len(dims))(*dims)
-        stream = torch.cuda.current_stream(obs.device).cuda_stream
-        err = lib.fused_policy_forward(
-            obs.data_ptr(), w_ptrs, b_ptrs, c_dims, num_hidden, A,
-            LOG_SIG_MIN, LOG_SIG_MAX, mean.data_ptr(), log_std.data_ptr(),
-            B, stream)
-        if err != 0:
-            raise RuntimeError("fused_policy_forward: "
-                               + lib.fused_mlp_error_string(err).decode())
-        fused_gaussian_policy_forward.launches += 1
-    return mean, log_std
+    if obs.shape[0] == 0:
+        A = weights[-1].shape[0]
+        empty = torch.empty((0, A), dtype=torch.float32, device=obs.device)
+        return empty, empty.clone()
+    stream = torch.cuda.current_stream(obs.device).cuda_stream
+    out = _launch(_lib(), weights, biases, obs, dims, stream)
+    fused_gaussian_policy_forward.launches += 1
+    return out
 
 
 fused_gaussian_policy_forward.launches = 0

@@ -27,8 +27,8 @@ import ctypes
 
 import torch
 
-# limits of kernel K4 (PGS_MAX_* in csrc/pgs.cu): one lane per velocity
-# coordinate, and the per-row scalars of one env in shared memory
+# limits of kernel K4 (PGS_MAX_* in csrc/pgs.cu): up to 32 velocity
+# coordinates in an env's lanes, and an env's rows in shared memory
 MAX_NV, MAX_ROWS = 32, 256
 
 

@@ -135,6 +135,31 @@ def test_fused_policy_kernel_at_humanoid_width(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 17, 128])
+@pytest.mark.parametrize("obs_size,hidden,act", [
+    (11, (256, 256), 3), (348, (256, 256), 17), (40, (1024,), 5),
+    (20, (64, 48, 32, 16), 4)])
+def test_fused_policy_kernel_shapes(obs_size, hidden, act, B, cuda):
+    """K3's cluster launch at the shapes its host rehearsal covers
+    (tests/test_torch_fused_mlp.py): hopper's and humanoid's acting shapes,
+    one layer of 1024, four hidden layers; one launch, two launches
+    bit-equal."""
+    gen = torch.Generator().manual_seed(B)
+    policy = TanhGaussianPolicy(obs_size, act, hidden, gen).to(cuda)
+    obs = torch.randn(B, obs_size, generator=gen).to(cuda)
+    before = fused_mlp.fused_gaussian_policy_forward.launches
+    got = fused_mlp.fused_gaussian_policy_forward(policy, obs)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_gaussian_policy_forward.launches == before + 1
+    with torch.no_grad():
+        want = fused_mlp.policy_forward_plain(*fused_mlp._layers(policy), obs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+    again = fused_mlp.fused_gaussian_policy_forward(policy, obs)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.gpu
 def test_planar_kernel_rejects_bad_inputs(cuda):
     pm = pd.planar_model(_model("hopper"))
     q = torch.zeros(6, 8, device=cuda)
@@ -340,6 +365,44 @@ def test_pgs_kernel_matches_plain(nr, nv, B, cuda):
     assert bool((got[~args[5]] == 0.0).all()) and bool((got >= 0.0).all())
     W_cols = args[1].transpose(1, 2).contiguous().transpose(1, 2)
     assert torch.equal(got, pgs.pgs_solve(args[0], W_cols, *args[2:], 15))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["none", "all", "first", "last",
+                                     "alternating", "random"])
+def test_pgs_kernel_mask_patterns(pattern, cuda):
+    """K4 walks only each env's active rows: any mask, against the plain
+    version, which walks every row, in the layout the kernel takes on each
+    side of the SM count (B = 100: 4 lanes an env; B = 1000: 32 lanes an
+    env, several envs a block); nv 23 is no multiple of the lanes."""
+    for B in (100, 1000):
+        J, W, Rreg, b, D, _, f0 = _pgs_problem(38, 23, B, cuda)
+        r = torch.arange(38, device=cuda).expand(B, 38)
+        gen = torch.Generator().manual_seed(0)
+        active = {"none": r < 0, "all": r >= 0, "first": r == 0,
+                  "last": r == 37, "alternating": r % 2 == 1,
+                  "random": (torch.rand(B, 38, generator=gen) < 0.3).to(cuda)
+                  }[pattern].contiguous()
+        args = (J, W, Rreg, b, D, active, f0)
+        got = pgs.pgs_solve(*args, 15)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, pgs.pgs_solve_plain(*args, 15),
+                                   rtol=2e-4, atol=1e-4)
+        assert bool((got[~active] == 0.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ant", "humanoid"])
+def test_pgs_kernel_on_the_engines_rows(name, cuda):
+    """K4 on the rows one `forward` of 128 grounded envs hands its solve."""
+    from ilswiss_tpu_torch.kernels.engine_profile import engine_rows
+    args = engine_rows(_model(name), name, 128, cuda)
+    got = pgs.pgs_solve(*args, 15)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, pgs.pgs_solve_plain(*args, 15),
+                               rtol=2e-4, atol=1e-4)
+    assert bool((got[~args[5]] == 0.0).all()) and bool((got >= 0.0).all())
+    assert torch.equal(got, pgs.pgs_solve(*args, 15))
 
 
 @pytest.mark.gpu

@@ -9,7 +9,11 @@ tests/test_pgs_pallas.py's, go through
   * `pgs_solve_plain` and the Pallas kernel `_pgs_kernel_batched` in
     interpret mode;
   * `pgs_solve_plain` and the CUDA source itself, compiled by g++ against
-    the host shim and run on CPU threads (kernels/host_build.py).
+    the host shim and run on CPU threads (kernels/host_build.py): on random
+    problems, on every mask pattern, and on the rows of the engine's own
+    ant `forward`, each in the layout the kernel takes on both sides of the
+    shim's 3 "SMs" (B <= 3: 4 lanes an env, one env a block; B > 3: 32
+    lanes an env, several envs a block).
 
 Tolerance in float32: rtol 2e-4, atol 1e-4, the pin of
 tests/test_pgs_pallas.py (the same 15 sweeps with the dot products summed in
@@ -140,6 +144,58 @@ def test_kernel_source_on_host_threads_zero_sweeps(host_lib):
     args = _tensors(_problem(6, 4, 4))
     got = pgs._launch(host_lib, *args, 0, None)
     assert torch.equal(got, pgs.pgs_solve_plain(*args, 0))
+
+
+def _mask(pattern, nr, B):
+    """Active rows [B, nr] of a named pattern."""
+    r = np.arange(nr)[None].repeat(B, 0)
+    return {"none": r < 0, "all": r >= 0, "first": r == 0,
+            "last": r == nr - 1, "alternating": r % 2 == 1,
+            "random": np.random.RandomState(nr + B).rand(B, nr) < 0.3}[pattern]
+
+
+# (pattern, nr, nv, iters): every mask pattern, nv not a multiple of the
+# lanes (1, 14, 23, 32), one row and 256 rows, no sweeps
+MASK_CASES = [("none", 38, 14, 15), ("all", 38, 23, 15),
+              ("first", 38, 32, 15), ("last", 38, 1, 15),
+              ("alternating", 38, 14, 15), ("random", 38, 23, 15),
+              ("all", 1, 1, 15), ("random", 256, 32, 15),
+              ("alternating", 38, 14, 0)]
+
+
+@pytest.mark.parametrize("B", [2, 7])
+@pytest.mark.parametrize("pattern,nr,nv,iters", MASK_CASES)
+def test_kernel_source_walks_only_the_active_rows(host_lib, pattern, nr, nv,
+                                                  iters, B):
+    """csrc/pgs.cu builds each env's list of active rows and sweeps that
+    list only: against the plain version, which sweeps every row, for any
+    mask; inactive rows exactly zero, forces >= 0, two launches bit-equal.
+    B = 2 takes 4 lanes an env, B = 7 32 lanes an env and 3 envs a block
+    (lanes past nv read the zero row)."""
+    J, W, Rreg, b, D, _, f0 = _tensors(_problem(nr, nv, B))
+    args = (J, W, Rreg, b, D, torch.as_tensor(_mask(pattern, nr, B)), f0)
+    pgs._check_inputs(*args, iters)
+    want = pgs.pgs_solve_plain(*args, iters)
+    got = pgs._launch(host_lib, *args, iters, None)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
+    assert torch.all(got[~args[5]] == 0.0) and torch.all(got >= 0.0)
+    assert torch.equal(got, pgs._launch(host_lib, *args, iters, None))
+
+
+@pytest.mark.parametrize("B", [3, 7])
+def test_kernel_source_on_the_engines_ant_rows(host_lib, B):
+    """The rows one ant `forward` hands its solve (`_rows_from`, and
+    `_solve_rows`' own W, Rreg, b and D; W column-major as the triangular
+    solve leaves it), in the layout the kernel takes at B."""
+    from ilswiss_tpu_torch.envs.locomotion import _model
+    from ilswiss_tpu_torch.kernels.engine_profile import engine_rows
+    args = engine_rows(_model("ant"), "ant", B, torch.device("cpu"), ITERS)
+    assert 0 < int(args[5].sum()) < args[5].numel()
+    pgs._check_inputs(*args, ITERS)
+    got = pgs._launch(host_lib, *args, ITERS, None)
+    want = pgs.pgs_solve_plain(*args, ITERS)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
+    assert torch.all(got[~args[5]] == 0.0) and torch.all(got >= 0.0)
 
 
 # ---- what the wrapper refuses -----------------------------------------------
