@@ -12,7 +12,8 @@ exits non-zero on any failure; no phase catches its own error.
      into build/kernels/, one nvcc each, in parallel, printing `-Xptxas -v`;
   3. K1 against its plain PyTorch version on the card: hopper, walker,
      halfcheetah (Euler, damped) and invertedpendulum (no contacts), at
-     B = 128 and a ragged B = 100, one control step (one launch of the
+     B = 128, a ragged B = 100, and the launcher's B = 8 (its envs) and
+     B = 32 (its evaluator), one control step (one launch of the
      control-step mode against `_control_step` over `_forward_math`) and
      one forward evaluation (the one-evaluation mode against
      `_forward_math`) each at rtol 2e-4, atol 5e-3, and two launches
@@ -26,8 +27,9 @@ exits non-zero on any failure; no phase catches its own error.
      it), each beside a three-addmm PyTorch chain as the yardstick;
   4b. K2 against its plain version in the same mode (bf16 products, the
      default, and float32 products) from the same seeded state and inputs:
-     hidden 32, B = 32, K = 3, and full width (256 x 2, B = 512, K = 4) at
-     hopper's (11 / 3), ant's (105 / 8) and humanoid's (348 / 17) shapes;
+     hidden 32, B = 32, K = 3, full width (256 x 2, B = 512, K = 4) at
+     hopper's (11 / 3), ant's (105 / 8) and humanoid's (348 / 17) shapes,
+     and hopper's at the launcher's K = 8;
      at the pins of `K2_PINS` in ilswiss_tpu_torch/testing.py (float32:
      those of tests/test_fused_sac.py, parameters and targets rtol 2e-4,
      atol 2e-5; log alpha 1e-5, 1e-6; mu 2e-4, 2e-6; nu 2e-3, 1e-8;
@@ -83,7 +85,23 @@ exits non-zero on any failure; no phase catches its own error.
      envs, 256 x 2 nets, batch 512, a 1M ring, K = 128, as
      exp_specs/sac/sac_humanoid.yaml), cut in length to
      `min_steps_before_training` 1024: 8 warmup and 3 training iterations,
-     with K4 = 20 launches per control step, K2 = 3, K3 = 3 and K1 = 0.
+     with K4 = 20 launches per control step, K2 = 3, K3 = 3 and K1 = 0;
+  9. the YAML launcher: exp_specs/sac/sac_hopper_optable.yaml through
+     `build_variants` and `EXPERIMENTS["sac"]` of the port, at the spec's
+     width (8 envs, 256 x 2, batch 512, a 1M ring, the fused chain with K =
+     8), cut in length only, logs under build/chip_smoke/, no trace.  Run
+     A: 2 epochs straight through (warmup, training, a 32-episode
+     evaluation an epoch).  Run B: 1 epoch, then a full resume from
+     its checkpoints/last to 2 epochs.  Launch counts exact (A: K1 = 625
+     warmup + 2 x 1250 training + 2 x 1000 evaluation = 5125, K2 = 2500;
+     B: 2875 and 1250; B's resume: 2250 and 1250; K3 = K4 = 0); B's end
+     state equal to A's bit for bit, and its progress.csv rows but for the
+     wall clocks; TotalEnvSteps 15000 and 25000, every value finite; the
+     snapshot's size, save and load time; a CPU restore of the card's
+     snapshot acting within rtol = atol = 2e-5 of the card's policy; on
+     the path's own data, K1 at B = 8 and 32 from run A's end states
+     (phase 3's check) and K2 at K = 8, B = 512 on batches of run A's ring
+     (phase 4b's, both modes) against their plain versions, and timed.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -244,6 +262,236 @@ K2_DRIFT = {"params": 0.25 * 128 * 3e-4, "metrics_rtol": 2e-2,
             "metrics_atol": 2e-2, "f64_factor": 4.0}
 
 
+# Phase 9: the spec run through the port's launcher, cut in length only
+LAUNCHER_SPEC = "exp_specs/sac/sac_hopper_optable.yaml"
+# wall clocks: the only progress.csv columns in which a resumed run may
+# differ from the uninterrupted one (WallTime is the logger's own)
+CLOCK_COLUMNS = {"TrainTime", "EvalTime", "EnvStepsPerSec", "WallTime"}
+
+
+def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
+                   k2_check) -> dict:
+    """Phase 9: LAUNCHER_SPEC through `build_variants` and
+    `EXPERIMENTS["sac"]` on the card, with only num_epochs, log_dir,
+    profile_dir (none: no trace) and print_to_console changed.  Run A: 2
+    epochs straight through.  Run B: 1 epoch, then a full resume from its
+    log_dir to 2 epochs.  Fails unless every launch count is the one derived from the
+    spec, B's end state equals A's bit for bit, progress.csv holds
+    TotalEnvSteps 15000 / 25000 and finite values (B's rows equal to A's
+    but for the wall clocks), a CPU restore of the card's snapshot acts
+    as the card's policy does, and K1 and K2 agree with their plain
+    versions at the path's shapes on its data (`k1_check`, `k2_check`:
+    phase 3's and 4b's checks).  Returns what the kernels line needs."""
+    import copy
+    import csv
+    import os
+    import shutil
+
+    import torch
+    import yaml
+
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.data.replay import replay_sample
+    from ilswiss_tpu_torch.launchers.experiments import EXPERIMENTS
+    from ilswiss_tpu_torch.launchers.variant import build_variants
+    from ilswiss_tpu_torch.ops.fused_sac import METRIC_NAMES
+    from ilswiss_tpu_torch.runtime.checkpoint import (
+        restore_checkpoint, restore_subtree, save_checkpoint, to_tree,
+    )
+    from ilswiss_tpu_torch.testing import tree_diff
+
+    out = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    with open(ROOT / LAUNCHER_SPEC) as f:
+        (variant,) = build_variants(yaml.safe_load(f))
+
+    def run(name, num_epochs, **extra):
+        v = copy.deepcopy(variant)
+        v["rl_alg_params"]["num_epochs"] = num_epochs
+        v["log_dir"] = str(out / name)
+        # no trace: one traced epoch took 36.3 s against 5.2 to 5.5 s and
+        # wrote 526.4 MiB on the card (PERF.md); the tests cover `trace`
+        v["profile_dir"] = None
+        v["print_to_console"] = False
+        v.update(extra)
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        runner = EXPERIMENTS["sac"](v)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return runner, {n: k.launches for n, k in counters.items()}, seconds
+
+    # the launch counts, derived from the spec: K1 once per control step of
+    # warmup (min_steps_before_training // env_num iterations), training
+    # (num_steps_per_epoch // env_num iterations an epoch) and evaluation
+    # (max_path_length steps of the 32-env evaluator an epoch); K2 once per
+    # training iteration (use_fused_chain, K = 8 steps); K3 and K4 never
+    # (run_sac sets no fused acting, and hopper is planar)
+    rl = variant["rl_alg_params"]
+    n = variant["env_specs"]["env_num"]
+    warm = rl["min_steps_before_training"] // n
+    iters = rl["num_steps_per_epoch"] // n
+    evals = rl["max_path_length"]
+
+    def want(epochs, warmup):
+        return {"planar_control_step": (warm if warmup else 0)
+                + epochs * (iters + evals), "planar_forward": 0,
+                "fused_sac_chain": epochs * iters,
+                "fused_policy_forward": 0, "pgs_solve": 0}
+
+    a, a_launches, a_s = run("a", 2)
+    b1, b1_launches, b1_s = run("b", 1)
+    b, b_launches, b_s = run("b", 2, load_params=str(out / "b"))
+    for what, got, exp, total in (
+            ("A (2 epochs)", a_launches, want(2, True), (5125, 2500)),
+            ("B (1 epoch)", b1_launches, want(1, True), (2875, 1250)),
+            ("B resumed to 2 epochs", b_launches, want(1, False),
+             (2250, 1250))):
+        if got != exp or (exp["planar_control_step"],
+                          exp["fused_sac_chain"]) != total:
+            fail(f"launcher run {what}: launches {got}, expected {exp}")
+        print(f"launcher run {what}: launches {json.dumps(got)}")
+    print(f"launcher runs: A {a_s:.1f} s, B {b1_s:.1f} s + resume "
+          f"{b_s:.1f} s (wall time of each call), on {card}")
+
+    a_tree = to_tree(a)
+    bad = tree_diff(a_tree, to_tree(b))
+    if bad:
+        fail(f"the resumed run B differs from run A in {bad[:10]}")
+    print("resume: B's end state equals A's bit for bit (parameters, "
+          "targets, Adam moments and counts, log alpha, ring with cursor, "
+          "size and episode counters, env state, env steps, noise "
+          "generator)")
+
+    def rows(name):
+        with open(out / name / "progress.csv") as f:
+            return list(csv.DictReader(f))
+
+    a_rows, b_rows = rows("a"), rows("b")
+    need = ([f"trainer/{k}" for k in METRIC_NAMES]
+            + ["AverageReturn", "MaxReturn", "MinReturn", "StdReturn",
+               "AvgPathLength", "TotalEnvSteps", "TrainTime", "EvalTime",
+               "EnvStepsPerSec"])
+    for name, rs in (("A", a_rows), ("B", b_rows)):
+        if len(rs) != 2 or not set(need) <= set(rs[0]):
+            fail(f"run {name}: progress.csv has {len(rs)} rows, columns "
+                 f"{list(rs[0]) if rs else []}")
+        if [float(r["TotalEnvSteps"]) for r in rs] != [15000.0, 25000.0]:
+            fail(f"run {name}: TotalEnvSteps "
+                 f"{[r['TotalEnvSteps'] for r in rs]}, expected 15000, "
+                 f"25000")
+        for r in rs:
+            if not all(math.isfinite(float(v)) for v in r.values()):
+                fail(f"run {name}: a value of progress.csv is not finite")
+    for ra, rb in zip(a_rows, b_rows):
+        da = {k: v for k, v in ra.items() if k not in CLOCK_COLUMNS}
+        db = {k: v for k, v in rb.items() if k not in CLOCK_COLUMNS}
+        if da != db:
+            fail(f"progress.csv epoch {ra['Epoch']}: B differs from A in "
+                 f"{sorted(k for k in da if da[k] != db.get(k))}")
+    epochs = [{k: float(r[k]) for k in ("TrainTime", "EvalTime",
+                                        "EnvStepsPerSec", "AverageReturn")}
+              for r in a_rows + b_rows]
+    for (run_name, ep), e in zip((("A", 0), ("A", 1), ("B", 0), ("B", 1)),
+                                 epochs):
+        print(f"launcher run {run_name} epoch {ep}: TrainTime "
+              f"{e['TrainTime']:.3f} s, EvalTime {e['EvalTime']:.3f} s, "
+              f"EnvStepsPerSec {e['EnvStepsPerSec']:.1f}, AverageReturn "
+              f"{e['AverageReturn']:.3f}"
+              + f", on {card}")
+
+    # a full snapshot: size, save and load time
+    snap = out / "snapshot"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(snap), a)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(snap / "state.pt")
+    t0 = time.perf_counter()
+    restore_checkpoint(str(snap), b1)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad = tree_diff(a_tree, to_tree(b1))
+    if bad:
+        fail(f"a snapshot restored into run B's first runner differs in "
+             f"{bad[:10]}")
+    print(f"full snapshot: {size / 2**20:.1f} MiB on disk, save "
+          f"{save_s:.3f} s, load {load_s:.3f} s (into a runner on the card), "
+          f"on {card}")
+
+    # the card-written snapshot restored into a CPU template
+    cpu_sac = SAC(11, 3, SACConfig(), net_size=256, num_hidden_layers=2,
+                  device="cpu")
+    cpu_state = restore_subtree(str(out / "a" / "checkpoints" / "last"),
+                                cpu_sac.init(1), key="algo_state")
+    card_sac = SAC(11, 3, SACConfig(), net_size=256, num_hidden_layers=2,
+                   use_fused_chain=True)
+    obs = torch.randn(64, 11, generator=torch.Generator().manual_seed(3))
+    got = cpu_sac.act(cpu_state, obs, deterministic=True)
+    ref = card_sac.act(a.algo_state, obs.cuda(), deterministic=True).cpu()
+    cross_err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, rtol=2e-5, atol=2e-5):
+        fail(f"the CPU restore of the card's snapshot acts {cross_err:.3g} "
+             f"away from the card's policy")
+    print(f"cross-device restore: CPU policy vs the card's on 64 "
+          f"observations, max |err| {cross_err:.3g} (rtol = atol = 2e-5)")
+
+    # K2 at the launcher path's shape: K = 8, hopper, batch 512, from a
+    # fresh state on batches of run A's ring, held against its plain
+    # version in both modes and timed
+    k2, k2_plain = k2_fns
+    state = card_sac.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    K = round(n * rl["num_train_steps_per_train_call"]
+              / rl["num_steps_between_train_calls"])
+    B = rl["batch_size"]
+    u = torch.rand((K, B), device="cuda", generator=gen)
+    batches = replay_sample(a.replay, u)
+    eps = [torch.randn((K, B, 3), device="cuda", generator=gen)
+           for _ in range(2)]
+    k2_errs = k2_check(f"hopper 256x2, B={B}, K={K}, run A's ring", 11, 3,
+                       256, B, K, case=(card_sac, batches, *eps))
+    k2_err = {mode: max(k2_errs[dt][g]
+                        for g in ("params", "log_alpha", "mu", "nu"))
+              for mode, dt in (("bf16", torch.bfloat16),
+                               ("float32", torch.float32))}
+    ms = time_ms(lambda: k2(card_sac, state, batches, *eps), 50)
+    plain_ms = time_ms(lambda: k2_plain(card_sac, state, batches, *eps), 5, 1)
+
+    # K1 at the launcher path's batches, 8 envs (warmup and training) and
+    # 32 (the evaluator), from run A's end states and actions in [-1, 1]:
+    # held against its plain version, and timed
+    from ilswiss_tpu_torch.envs.locomotion import HopperDevice, _model
+    from ilswiss_tpu_torch.ops import planar_dynamics as pd
+    pm = pd.planar_model(_model("hopper"))
+    k1_ms, k1_err = {}, {}
+    for nb in (n, 4 * n):
+        q, qd, f0 = (x.repeat(nb // n, 1).t().contiguous()
+                     for x in a.env_state.internal)
+        ctrl = 2 * torch.rand((len(pm.act_dof), nb), device="cuda",
+                              generator=gen) - 1
+        k1_err[nb] = k1_check(f"K1 hopper B={nb}, run A's end states", pm,
+                              q, qd, ctrl, f0, HopperDevice.solver_iters)
+        print(f"K1 hopper B={nb} on run A's end states: control step max "
+              f"|kernel - plain| {k1_err[nb]:.3g}; two launches bit-equal")
+        k1_ms[nb] = time_ms(lambda: counters["planar_control_step"](
+            pm, q, qd, ctrl, f0, HopperDevice.solver_iters), 50)
+    it_ms = 1e3 * sum(e["TrainTime"] for e in epochs) / (len(epochs) * iters)
+    print(f"launcher iteration: {it_ms:.3f} ms (mean over the 4 epochs); "
+          f"K1 at B = {n}: {k1_ms[n]:.4f} ms, K2 at K = {K}: {ms:.4f} ms, "
+          f"{(k1_ms[n] + ms) / it_ms:.1%} of it; K1 at B = {4 * n} (the "
+          f"evaluator): {k1_ms[4 * n]:.4f} ms of a "
+          f"{1e3 * sum(e['EvalTime'] for e in epochs) / (4 * evals):.3f} ms "
+          f"control step; on {card}")
+    return {"launches": a_launches, "resumed_launches": b_launches,
+            "k2_k8_ms": ms, "k2_k8_plain_ms": plain_ms,
+            "k2_k8_err": k2_err, "k1_ms": k1_ms, "k1_err": k1_err,
+            "iteration_ms": it_ms,
+            "snapshot_mib": size / 2**20, "save_s": save_s, "load_s": load_s,
+            "cross_device_err": cross_err, "epochs": epochs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -335,28 +583,36 @@ def main() -> int:
     iters = 15
     k1s = pd.planar_control_step
     flat = lambda s: [s[0], s[1], s[2], s[3], s[4][0], s[4][1]]
+
+    def k1_step_check(what, pm, q, qd, ctrl, f0, iters):
+        """K1's control step against its plain version at the pins
+        (rtol 2e-4, atol 5e-3), and two launches bit-equal.  Returns max
+        |kernel - plain|."""
+        got_s = k1s(pm, q, qd, ctrl, f0, iters)
+        torch.cuda.synchronize()
+        want_s = pd._control_step(pm, plain_fwd(pm, iters), q, qd, ctrl, f0)
+        check(f"{what} control step", flat(got_s), flat(want_s), 2e-4, 5e-3)
+        if not all(torch.equal(a, b) for a, b in zip(
+                flat(got_s), flat(k1s(pm, q, qd, ctrl, f0, iters)))):
+            fail(f"{what}: two launches differ")
+        return max_err(flat(got_s), flat(want_s))
+
     hopper_err = None
     for name in ("hopper", "walker", "halfcheetah", "invertedpendulum"):
         m = _model(name)
         pm = pd.planar_model(m)
         damped = pm.integrator == "euler"
-        for B in (128, 100):
+        # 128 and 100 as the main paths, 8 and 32 as the launcher's
+        # training envs and its 32-episode evaluator
+        for B in (128, 100, 8, 32):
             q, qd, ctrl, f0 = k1_inputs(m, B)
             got = k1(pm, q, qd, ctrl, f0, iters, damped)
             torch.cuda.synchronize()
             want = plain_fwd(pm, iters)(q, qd, ctrl, f0, damped)
             check(f"K1 {name} B={B} forward", got, want, 2e-4, 5e-3)
             err_f = max_err(got, want)
-            got_s = k1s(pm, q, qd, ctrl, f0, iters)
-            torch.cuda.synchronize()
-            want_s = pd._control_step(pm, plain_fwd(pm, iters),
-                                      q, qd, ctrl, f0)
-            check(f"K1 {name} B={B} control step", flat(got_s),
-                  flat(want_s), 2e-4, 5e-3)
-            if not all(torch.equal(a, b) for a, b in zip(
-                    flat(got_s), flat(k1s(pm, q, qd, ctrl, f0, iters)))):
-                fail(f"K1 {name} B={B}: two launches differ")
-            err_s = max_err(flat(got_s), flat(want_s))
+            err_s = k1_step_check(f"K1 {name} B={B}", pm, q, qd, ctrl, f0,
+                                  iters)
             print(f"K1 {name:16s} B={B:4d}: forward max |err| {err_f:.3g}, "
                   f"control step ({pm.frame_skip} x {pm.integrator}, one "
                   f"launch) max |err| {err_s:.3g}; two launches bit-equal")
@@ -479,15 +735,20 @@ def main() -> int:
     mode_name = {bf16: "bf16", f32: "float32"}
     plain_chain = fused_sac.fused_sac_chain_plain
 
-    def k2_modes(what, n_obs, n_act, width, B, K):
+    def k2_modes(what, n_obs, n_act, width, B, K, case=None):
         """K2 against its plain version in each mode, from one seeded state
-        and one set of inputs: every group at the mode's pins, but in bf16
-        mode at widths over 32 the parameters, mu and nu under
-        `bf16_gate`, with the plain float32 mode as its control; and the
+        and one set of inputs (`case`: a trainer, its [K, B] batches and
+        the two noise draws; by default `k2_case`'s): every group at the
+        mode's pins, but in bf16 mode at widths over 32 the parameters, mu
+        and nu under `bf16_gate`, with the plain float32 mode as its
+        control; and the
         float32 mode held against the plain bf16 mode the same way must
         fail that gate.  Returns max |kernel - plain| per mode and group."""
-        sac_, _, _, batches, e_next, e_new = k2_case(n_obs, n_act, width,
-                                                     B, K)
+        if case is None:
+            sac_, _, _, batches, e_next, e_new = k2_case(n_obs, n_act,
+                                                         width, B, K)
+        else:
+            sac_, batches, e_next, e_new = case
         runs = {}
         for who, chain in (("kernel", k2), ("plain", plain_chain)):
             for dt in (bf16, f32):
@@ -564,6 +825,8 @@ def main() -> int:
             k2_err = {dt: max(errs[dt][n] for n in ("params", "log_alpha",
                                                     "mu", "nu"))
                       for dt in (bf16, f32)}
+    # the launcher's K: round(8 envs x 1000 / 1000) steps a launch
+    k2_modes("hopper shape 11/3, 256x2, B=512, K=8", 11, 3, 256, 512, 8)
     k2_drift(bf16)
     f32_got, f32_want = k2_drift(f32)
 
@@ -939,6 +1202,18 @@ def main() -> int:
     humanoid_launches = drive("humanoid", fused=True, train_iters=3,
                               min_steps=1024)
 
+    # ---- 9. the YAML launcher: sac_hopper_optable.yaml, save and resume ----
+    launcher = launcher_phase(
+        card, {"planar_control_step": k1s, "planar_forward": k1,
+               "fused_sac_chain": k2, "fused_policy_forward": k3,
+               "pgs_solve": k4},
+        (k2, fused_sac.fused_sac_chain_plain), k1_step_check, k2_modes)
+    k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
+    print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
+          f"bf16): {launcher['k2_k8_ms']:.4f} ms per launch, plain version "
+          f"{launcher['k2_k8_plain_ms']:.3f} ms, bound "
+          f"{k2_k8_bound[0]:.6f} ms ({k2_k8_bound[1]}), on {card}")
+
     ant_k4 = k4_engine["ant", 128]
     kernels = [
         {"name": "planar_forward", "route": "cuda",
@@ -948,7 +1223,10 @@ def main() -> int:
          "max_abs_err": hopper_err, "ms": k1_times[128],
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
-         "ms_per_evaluation": k1_eval_ms, "ms_b1024": k1_times[1024]},
+         "ms_per_evaluation": k1_eval_ms, "ms_b1024": k1_times[1024],
+         "launcher": {f"b{b}": {"ms": v,
+                                "max_abs_err": launcher["k1_err"][b]}
+                      for b, v in launcher["k1_ms"].items()}},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
@@ -960,7 +1238,14 @@ def main() -> int:
                      "bound_ms": k2_bounds["hopper", f32][0],
                      "max_abs_err": k2_err[f32]},
          "ant_shape_ms": {"bf16": k2_ms["ant", bf16],
-                          "float32": k2_ms["ant", f32]}},
+                          "float32": k2_ms["ant", f32]},
+         "launcher_k8": {"ms": launcher["k2_k8_ms"],
+                         "plain_ms": launcher["k2_k8_plain_ms"],
+                         "max_abs_err": launcher["k2_k8_err"]["bf16"],
+                         "float32_max_abs_err":
+                             launcher["k2_k8_err"]["float32"],
+                         "bound_ms": k2_k8_bound[0],
+                         "bound_by": k2_k8_bound[1]}},
         {"name": "fused_policy_forward", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "ilswiss_tpu/ops/fused_mlp.py:34",
@@ -994,9 +1279,9 @@ def main() -> int:
     ]
     # K1's count is the hopper main path's (its control-step mode), K4's
     # the ant main path's; K2 and K3 run on all three, and the line carries
-    # the ant path's
+    # the ant path's; `launches_by_path` adds the launcher's run A
     paths = {"hopper": hopper_launches, "ant": ant_launches,
-             "humanoid": humanoid_launches}
+             "humanoid": humanoid_launches, "launcher": launcher["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

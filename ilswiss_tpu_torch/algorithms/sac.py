@@ -45,7 +45,9 @@ from ilswiss_tpu_torch.data.replay import ReplayState, replay_sample
 from ilswiss_tpu_torch.ops.fused_mlp import fused_gaussian_policy_forward
 from ilswiss_tpu_torch.ops.fused_sac import fused_sac_chain
 from ilswiss_tpu_torch.utils.device import resolve_device
-from ilswiss_tpu_torch.utils.pytree import copy_params, soft_update
+from ilswiss_tpu_torch.utils.pytree import (
+    copy_into, copy_params, soft_update,
+)
 
 
 @dataclass(frozen=True)
@@ -117,6 +119,22 @@ class Adam:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self) -> Dict:
+        """The moments and the count (the parameters belong to their
+        module's state dict)."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Copies the moments in place and sets the count."""
+        for name in ("mu", "nu"):
+            mine, theirs = getattr(self, name), state[name]
+            if len(theirs) != len(mine):
+                raise ValueError(f"Adam.{name}: {len(mine)} moments, the "
+                                 f"state holds {len(theirs)}")
+            for i, (m, t) in enumerate(zip(mine, theirs)):
+                copy_into(m, t, f"Adam.{name}[{i}]")
+        self.count = int(state["count"])
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         self.count += 1

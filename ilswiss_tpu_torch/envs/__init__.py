@@ -1,9 +1,9 @@
 """Env registry and factory (counterpart: ilswiss_tpu/envs/__init__.py).
 
 `make(name)` returns a static `Environment`, `make_vec(name, num_envs)`
-the lockstep vectorized env.  The MuJoCo locomotion models are ported
-(all but walker and halfcheetah); the classic-control and goal envs are
-not.
+the lockstep vectorized env.  Ported: the MuJoCo locomotion models and
+pendulum and mountain.  Not ported yet: cartpole (ROADMAP section 1 item
+2.1), reach2d (item 2.5) and pendulum_pixels (item 2.7).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Callable, Dict
 from ilswiss_tpu_torch.envs.base import Environment, EnvState, StepOutput
 from ilswiss_tpu_torch.envs.vector import Transition, VectorEnv
 from ilswiss_tpu_torch.envs import locomotion
+from ilswiss_tpu_torch.envs.classic import MountainCarContinuous, Pendulum
 
 ENV_REGISTRY: Dict[str, Callable[..., Environment]] = {}
 
@@ -21,6 +22,9 @@ def register(name: str, ctor: Callable[..., Environment]) -> None:
     ENV_REGISTRY[name] = ctor
 
 
+# Names follow the reference registry keys (rlkit/envs/envs_dict.py).
+register("pendulum", Pendulum)
+register("mountain", MountainCarContinuous)
 locomotion.register_all(register)
 
 

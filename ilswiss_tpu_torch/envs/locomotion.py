@@ -7,6 +7,8 @@ in the JAX package:
   hopper:  obs [qpos[1:], clip(qvel, +-10)]; r = dx/dt + healthy
            - 1e-3 |a|^2; healthy: finite, |state[2:]| < 100, z > 0.7,
            |angle| < 0.2
+  walker:  same obs form; healthy: 0.8 < z < 2.0, |angle| < 1
+  halfcheetah: obs [qpos[1:], qvel]; r = dx/dt - 0.1 |a|^2; no terminal
   invertedpendulum: obs [qpos, qvel]; r = 1 while |angle| <= 0.2
   inverteddoublependulum: obs [x, sin q12, cos q12, clip(qvel, +-10),
            clip(qfrc_constraint[0], +-10)]; r = 10 healthy
@@ -21,14 +23,11 @@ in the JAX package:
            - min(5e-7 sum cfrc^2, 10); healthy: 1 < z < 2
   ant_trunc_obs, humanoid_trunc_obs: the same with obs [qpos[2:], qvel]
 
-Walker and halfcheetah are not registered yet; their planar models already
-step through the same physics as hopper.
-
 The internal state is (qpos, qvel, row forces): the constraint solver
 warm-starts from the previous control step's forces, and they reset to
 zero with the episode.  `solver_iters` PGS sweeps per evaluation (15).
 Physics steps through `physics_step_auto`: the planar models (hopper,
-invertedpendulum) through ops/planar_dynamics.py, whose forward evaluations
+walker, halfcheetah, invertedpendulum) through ops/planar_dynamics.py, whose forward evaluations
 are kernel K1 on the GPU; the others through the general engine of
 ops/rigid_body.py, whose Gauss-Seidel solves are kernel K4.
 """
@@ -64,8 +63,8 @@ class LocomotionEnv(Environment):
     max_episode_steps = 1000
     solver_iters = 15
     reset_noise_scale = 5e-3
-    gaussian_qvel_noise = False   # the double pendulum and ant draw qvel
-                                  # from N(0, s)
+    gaussian_qvel_noise = False   # halfcheetah, the double pendulum and
+                                  # ant draw qvel from N(0, s)
 
     def __init__(self, device=None, **overrides):
         super().__init__(device=device, **overrides)
@@ -137,6 +136,36 @@ class HopperDevice(LocomotionEnv):
                    & (q[:, 1] > 0.7) & (torch.abs(q[:, 2]) < 0.2))
         reward = x_vel + 1.0 - 1e-3 * torch.sum(action ** 2, dim=-1)
         return reward, torch.logical_not(healthy)
+
+
+class WalkerDevice(LocomotionEnv):
+    name = "walker"
+    observation_size = 17
+
+    def _obs(self, q, qd, qfrc_con):
+        return torch.cat([q[:, 1:], torch.clamp(qd, -10.0, 10.0)], dim=-1)
+
+    def _reward_terminal(self, q_before, q, qd, qfrc_con, action):
+        x_vel = (q[:, 0] - q_before[:, 0]) / self.dt
+        healthy = ((q[:, 1] > 0.8) & (q[:, 1] < 2.0)
+                   & (q[:, 2] > -1.0) & (q[:, 2] < 1.0))
+        reward = x_vel + 1.0 - 1e-3 * torch.sum(action ** 2, dim=-1)
+        return reward, torch.logical_not(healthy)
+
+
+class HalfCheetahDevice(LocomotionEnv):
+    name = "halfcheetah"
+    observation_size = 17
+    reset_noise_scale = 0.1
+    gaussian_qvel_noise = True
+
+    def _obs(self, q, qd, qfrc_con):
+        return torch.cat([q[:, 1:], qd], dim=-1)
+
+    def _reward_terminal(self, q_before, q, qd, qfrc_con, action):
+        x_vel = (q[:, 0] - q_before[:, 0]) / self.dt
+        reward = x_vel - 0.1 * torch.sum(action ** 2, dim=-1)
+        return reward, torch.zeros_like(reward, dtype=torch.bool)
 
 
 class InvertedPendulumDevice(LocomotionEnv):
@@ -304,6 +333,8 @@ class HumanoidTruncObsDevice(HumanoidDevice):
 
 def register_all(register) -> None:
     register("hopper", HopperDevice)
+    register("walker", WalkerDevice)
+    register("halfcheetah", HalfCheetahDevice)
     register("ant", AntDevice)
     register("ant_trunc_obs", AntTruncObsDevice)
     register("humanoid", HumanoidDevice)

@@ -1,0 +1,396 @@
+"""Variant-dict -> training run (counterpart:
+ilswiss_tpu/launchers/experiments.py; the SAC part).
+
+Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
+functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
+variant schema (net_size / rl_alg_params / <algo>_params / env_specs), so
+the exp_specs/ files run unchanged.
+
+Schedule mapping: the reference interleaves
+`num_steps_between_train_calls` env steps with
+`num_train_steps_per_train_call` gradient steps on one env stream; with
+B lockstep envs one loop iteration advances B env steps, so
+grad_steps_per_iter = round(B * train_steps / steps_between).
+
+Every `run_*` takes `device=None`, resolved by `utils.device.resolve_device`:
+the GPU unless the caller names another device.  Only the on-device env
+path exists; a spec that the JAX package would send to its host bridges
+(a gymnasium id, or `env_specs.force_host`) raises NotImplementedError, as
+does a trainer or env that is not ported yet, naming the item of
+ROADMAP.md section 1 that ports it.  Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Callable, Dict
+
+from ilswiss_tpu_torch.envs import ENV_REGISTRY, make_vec
+from ilswiss_tpu_torch.envs.vector import VectorEnv
+from ilswiss_tpu_torch.logging.logger import Logger
+from ilswiss_tpu_torch.runtime.checkpoint import (
+    SnapshotManager, restore_checkpoint, restore_subtree, resume_point,
+)
+from ilswiss_tpu_torch.runtime.evaluator import make_evaluator
+from ilswiss_tpu_torch.runtime.loop import (
+    Noise, OffPolicyConfig, OffPolicyLoop,
+)
+from ilswiss_tpu_torch.utils.device import resolve_device
+from ilswiss_tpu_torch.utils.guards import (
+    PreemptionGuard, check_finite_metrics, enable_debug_nans,
+)
+from ilswiss_tpu_torch.utils.profiling import phase, trace
+
+# the reference envs_dict.py names that the JAX package runs on its host
+# bridges (copy of ilswiss_tpu/envs/host_mujoco.py:29-45)
+GYM_ENV_IDS: Dict[str, str] = {
+    "hopper": "Hopper-v5",
+    "walker": "Walker2d-v5",
+    "halfcheetah": "HalfCheetah-v5",
+    "ant": "Ant-v5",
+    "humanoid": "Humanoid-v5",
+    "swimmer": "Swimmer-v5",
+    "invertedpendulum": "InvertedPendulum-v5",
+    "inverteddoublependulum": "InvertedDoublePendulum-v5",
+    "lunarlandercont": "LunarLanderContinuous-v3",
+    "bipedalwalker": "BipedalWalker-v3",
+    "fetch-reach": "FetchReach-v4",
+    "fetch-push": "FetchPush-v4",
+    "fetch-pick-place": "FetchPickAndPlace-v4",
+    "fetch-slide": "FetchSlide-v4",
+}
+
+# device envs of the JAX registry that the port has not ported yet, with
+# the ROADMAP.md section 1 item that ports each
+UNPORTED_DEVICE_ENVS: Dict[str, str] = {
+    "cartpole": "2.1",
+    "reach2d": "2.5",
+    "pendulum_pixels": "2.7",
+}
+HOST_ITEM = "2.8"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to ilswiss_tpu_torch yet: ROADMAP.md "
+        f"section 1 item {item}")
+
+
+def _alg(variant: Dict, key: str) -> Dict:
+    return dict(variant.get(key) or {})
+
+
+def _is_host_env(env_name: str) -> bool:
+    """Route env names: device registry first, then host gym ids.
+
+    Unknown names raise instead of silently falling through to
+    gymnasium (a typo'd device-env name must not become a host run)."""
+    if env_name in ENV_REGISTRY:
+        return False
+    if env_name in UNPORTED_DEVICE_ENVS:
+        raise _not_ported(f"device env {env_name!r}",
+                          UNPORTED_DEVICE_ENVS[env_name])
+    if env_name in GYM_ENV_IDS:
+        return True
+    if "-v" in env_name:
+        try:
+            import gymnasium
+            known = env_name in gymnasium.registry
+        except ImportError:
+            known = False
+        if known:
+            return True
+    raise ValueError(
+        f"unknown env {env_name!r}: not a device env "
+        f"(ilswiss_tpu_torch.envs.ENV_REGISTRY), not a native-engine env, "
+        f"and not registered with gymnasium")
+
+
+def _route_host(variant: Dict, env_name: str) -> None:
+    """Raises where the JAX package would take its host path
+    (`env_specs: {force_host: true}`, or a host env name): the host
+    bridges are not ported.  Returns for the on-device path."""
+    if bool(_alg(variant, "env_specs").get("force_host", False)):
+        raise _not_ported("the host env path (env_specs.force_host)",
+                          HOST_ITEM)
+    if _is_host_env(env_name):
+        raise _not_ported(f"the host env path (env {env_name!r})",
+                          HOST_ITEM)
+
+
+def _setup(variant: Dict, default_exp_name: str):
+    seed = int(variant.get("seed", 0))
+    env_specs = _alg(variant, "env_specs")
+    env_name = env_specs.get("env_name", "pendulum")
+    env_kwargs = dict(env_specs.get("env_kwargs") or {})
+    rl = _alg(variant, "rl_alg_params")
+    max_path_length = int(rl.get("max_path_length", 1000))
+    env_kwargs.setdefault("max_episode_steps", max_path_length)
+    num_envs = int(env_specs.get("env_num", 1))
+
+    log_dir = variant.get("log_dir") or os.path.join(
+        "logs", variant.get("exp_name", default_exp_name),
+        f"seed_{seed}_id{variant.get('exp_id', 0)}",
+    )
+    logger = Logger(
+        log_dir,
+        use_tensorboard=bool(variant.get("use_tensorboard", False)),
+        use_wandb=bool(variant.get("use_wandb", False)),
+        print_to_console=bool(variant.get("print_to_console", True)),
+    )
+    logger.save_variant(variant)
+    return seed, env_name, env_kwargs, num_envs, rl, logger
+
+
+def _grad_steps_per_iter(rl: Dict, num_envs: int) -> int:
+    between = max(1, int(rl.get("num_steps_between_train_calls", 1000)))
+    per_call = int(rl.get("num_train_steps_per_train_call", 1000))
+    return max(1, round(num_envs * per_call / between))
+
+
+def _num_eval_envs(rl: Dict) -> int:
+    """The reference evaluates num_steps_per_eval // max_path_length
+    rollouts per epoch (normal_sampler.py:96-115, typically 10); run at
+    least `min_eval_episodes` (default 32) so the final-epoch mean +/- std
+    is a low-variance statistic."""
+    return max(
+        int(rl.get("num_steps_per_eval", 10_000))
+        // int(rl.get("max_path_length", 1000)),
+        int(rl.get("min_eval_episodes", 32)),
+    )
+
+
+def _maybe_resume(variant: Dict | None, logger: Logger, runner):
+    """variant['load_params'] = checkpoint path (or a previous run's
+    log_dir) -> (runner, start epoch, resumed, meta), the runner restored
+    in place (reference sac_exp_script.py:91-93 / logger.load_from_file).
+
+    resumed is one of False, "full" and "light": a light snapshot ('last'
+    of a light_snapshots run, or 'best', params and optimizers only)
+    restores just the algo state, and the caller re-runs warmup to refill
+    the ring.  A 'best' snapshot's own meta.json gives its epoch, so the
+    run continues after the best epoch.  `meta` is `resume_point`'s, from
+    which the caller seeds the best value."""
+    if not variant or not variant.get("load_params"):
+        return runner, 0, False, {}
+    path = str(variant["load_params"])
+    ckpt, meta, full = resume_point(path)
+    start_epoch = int(meta.get("epoch", -1)) + 1
+    if not full:
+        restore_subtree(ckpt, runner.algo_state, key="algo_state")
+        logger.log(f"light-resumed algo state from {path} at epoch "
+                   f"{start_epoch} (replay ring refills via warmup)")
+        return runner, start_epoch, "light", meta
+    restore_checkpoint(ckpt, runner)
+    logger.log(f"resumed from {path} at epoch {start_epoch}")
+    return runner, start_epoch, "full", meta
+
+
+def _run_off_policy(algo, vec: VectorEnv, rl: Dict, logger: Logger,
+                    seed: int, variant: Dict | None = None):
+    variant = variant or {}
+    loop = OffPolicyLoop(
+        vec, algo,
+        OffPolicyConfig(
+            batch_size=int(rl.get("batch_size", 256)),
+            replay_capacity=int(rl.get("replay_buffer_size", 1_000_000)),
+            min_steps_before_training=int(
+                rl.get("min_steps_before_training", 1000)),
+            grad_steps_per_iter=_grad_steps_per_iter(rl, vec.num_envs),
+            no_terminal=bool(rl.get("no_terminal", False)),
+        ),
+    )
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 10_000))
+    num_epochs = int(rl.get("num_epochs", 100))
+    max_path_length = int(rl.get("max_path_length", 1000))
+    n_eval = _num_eval_envs(rl)
+    eval_vec = VectorEnv(vec.env, n_eval) if n_eval > vec.num_envs else vec
+    evaluator = make_evaluator(
+        eval_vec, lambda s, o: algo.act(s, o, deterministic=True),
+        max_path_length)
+    # 'last' is written every `freq_saving` epochs and once after the
+    # final epoch; 'best' stores params only.  rl_alg_params.
+    # light_snapshots: 'last' too stores params only (the ring refills
+    # via warmup on resume), for runs whose full-ring save would dominate
+    # wall-clock.
+    light = bool(rl.get("light_snapshots", False))
+    snap = SnapshotManager(
+        logger.log_dir,
+        mode=str(rl.get("snapshot_mode", "gap_last")),
+        gap=int(rl.get("freq_saving", 10)),
+        save_best=bool(rl.get("save_best", True)),
+        best_state_fn=lambda r: {"algo_state": r.algo_state},
+        last_state_fn=(
+            (lambda r: {"algo_state": r.algo_state}) if light else None),
+    )
+
+    runner = loop.init(seed)
+    runner, start_epoch, resumed, meta = _maybe_resume(variant, logger,
+                                                       runner)
+    snap.best_value = float(meta.get("best_value", snap.best_value))
+    if resumed != "full":
+        runner = loop.warmup(runner)
+        logger.log(f"warmup done: {runner.total_env_steps} env steps")
+    # TotalEnvSteps after a light resume (the JAX device path's
+    # convention, experiments.py:404-405): the runner's step count restarts
+    # at the warmup's, so the LOGGED count adds the resumed epochs' steps,
+    # start_epoch * num_steps_per_epoch, and includes the second warmup.
+    steps_offset = (start_epoch * steps_per_epoch
+                    if resumed == "light" else 0)
+
+    if variant.get("debug_nans"):
+        enable_debug_nans()
+    guard = PreemptionGuard()
+    profile_dir = variant.get("profile_dir")
+    for epoch in range(start_epoch, num_epochs):
+        t0 = time.time()
+        with trace(profile_dir if epoch == start_epoch + 1 else None), \
+                phase("train"):
+            runner, metrics = loop.train_epoch(runner, steps_per_epoch)
+        check_finite_metrics(
+            metrics, epoch, logger.log,
+            abort=bool(variant.get("abort_on_nan", False)))
+        train_time = time.time() - t0
+
+        t0 = time.time()
+        with phase("eval"):
+            # a generator of its own each epoch (the JAX PRNGKey(seed +
+            # epoch + 1)): evaluation never draws from the runner's noise,
+            # so a resumed run stays exact
+            eval_stats = evaluator(runner.algo_state,
+                                   Noise(seed + epoch + 1, vec.env.device))
+        eval_time = time.time() - t0
+
+        logger.record_dict(metrics, prefix="trainer/")
+        logger.record_dict(eval_stats)
+        logger.record_tabular("TotalEnvSteps",
+                              steps_offset + runner.total_env_steps)
+        logger.record_tabular("TrainTime", train_time)
+        logger.record_tabular("EvalTime", eval_time)
+        logger.record_tabular(
+            "EnvStepsPerSec", steps_per_epoch / max(train_time, 1e-9))
+        logger.dump_tabular(epoch)
+        snap.on_epoch(epoch, runner, eval_stats)
+        if guard.should_stop:
+            # preemption notice: flush a resumable snapshot and exit at the
+            # epoch boundary
+            snap.save_last(runner, epoch=epoch)
+            logger.log(f"preemption flush at epoch {epoch}; exiting")
+            break
+    else:
+        if num_epochs > start_epoch:
+            # exact end state (gap_last mode saves sparsely)
+            snap.save_last(runner, epoch=num_epochs - 1)
+    guard.restore()
+    logger.close()
+    return runner
+
+
+# --------------------------------------------------------------------------
+def run_sac(variant: Dict[str, Any], device=None):
+    """SAC auto-alpha (reference run_scripts/sac_alpha_exp_script.py)."""
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "sac")
+    _route_host(variant, env_name)
+    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    p = _alg(variant, "sac_params")
+    algo = SAC(
+        obs_size=vec.env.observation_size,
+        action_size=vec.env.action_size,
+        config=SACConfig(
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            soft_target_tau=float(p.get("soft_target_tau", 5e-3)),
+            policy_lr=float(p.get("policy_lr", 3e-4)),
+            qf_lr=float(p.get("qf_lr", 3e-4)),
+            alpha_lr=float(p.get("alpha_lr", 3e-4)),
+            policy_mean_reg_weight=float(
+                p.get("policy_mean_reg_weight", 1e-3)),
+            policy_std_reg_weight=float(
+                p.get("policy_std_reg_weight", 1e-3)),
+            target_entropy=p.get("target_entropy"),
+        ),
+        net_size=int(variant.get("net_size", 256)),
+        num_hidden_layers=int(variant.get("num_hidden_layers", 2)),
+        use_fused_chain=bool(p.get("use_fused_chain", False)),
+        device=device,
+    )
+    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+
+
+def run_eval_policy(variant: Dict[str, Any], device=None):
+    """Standalone policy evaluation from a checkpoint (reference
+    run_scripts/evaluate_policy.py + exp_specs/eval_policy.yaml):
+    rollouts of the policy of a params-only snapshot ('best'), return
+    stats."""
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+
+    if bool(variant.get("save_samples", False)):
+        raise _not_ported("eval_policy's save_samples (data/demo.py and "
+                          "runtime/collector.py)", "2.6")
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, "eval_policy")
+    max_path_length = int(variant.get(
+        "max_path_length", rl.get("max_path_length", 1000)))
+    vec = make_vec(env_name, num_envs=max(num_envs, 8), device=device,
+                   **env_kwargs)
+    sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
+              net_size=int(variant.get("policy_net_size", 256)),
+              num_hidden_layers=int(variant.get(
+                  "policy_num_hidden_layers", 2)),
+              device=device)
+    algo_state = restore_checkpoint(
+        variant["policy_checkpoint"],
+        {"algo_state": sac.init(0)})["algo_state"]
+    noise = Noise(seed, device)
+    if bool(variant.get("eval_deterministic", True)):
+        act = lambda s, o: sac.act(s, o, deterministic=True)  # noqa: E731
+    else:
+        act = lambda s, o: sac.act(  # noqa: E731
+            s, o, noise.act((o.shape[0], sac.action_size)))
+    evaluator = make_evaluator(vec, act, max_path_length)
+    stats = evaluator(algo_state, noise)
+    logger.record_dict(stats)
+    logger.dump_tabular(0)
+    logger.close()
+    return stats
+
+
+def _unported_run(name: str, item: str) -> Callable:
+    def run(variant: Dict[str, Any], device=None):
+        raise _not_ported(f"the {name!r} experiment", item)
+    run.__name__ = f"run_{name}"
+    return run
+
+
+# every name of the JAX table (experiments.py:2188-2210); those not ported
+# yet raise, naming the ROADMAP.md section 1 item that ports them
+EXPERIMENTS: Dict[str, Callable] = {
+    "sac": run_sac,
+    "eval_policy": run_eval_policy,
+    **{name: _unported_run(name, item) for name, item in (
+        ("sac_vmap_seeds", "2.10"),
+        ("sac_v", "2.1"),
+        ("td3", "2.1"),
+        ("ddpg", "2.1"),
+        ("dqn", "2.1"),
+        ("discrete_sac", "2.1"),
+        ("ppo", "2.3"),
+        ("bc", "2.6"),
+        ("dagger", "2.6"),
+        ("render_policy", "2.10"),
+        ("adv_irl", "2.2"),
+        ("gail", "2.2"),
+        ("sac_ae", "2.7"),
+        ("sac_rad", "2.7"),
+        ("sac_curl", "2.7"),
+        ("her", "2.5"),
+        ("gcsl", "2.5"),
+        ("mbpo", "2.4"),
+        ("gen_expert", "2.6"),
+    )},
+}

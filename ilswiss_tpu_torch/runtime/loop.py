@@ -13,7 +13,9 @@ until data parallelism is ported.
 Every random draw of an iteration comes from one `noise` object, held by
 the RunnerState as JAX holds its key.  `Noise` draws from a
 `torch.Generator` on the loop's device; a test can swap in an object with
-the same methods that replays the JAX package's draws.
+the same methods that replays the JAX package's draws.  A checkpoint
+holds the generator's state (`Noise.state_dict`), so a resumed run draws
+what the uninterrupted one would have drawn.
 """
 
 from __future__ import annotations
@@ -54,6 +56,13 @@ class Noise:
     def _normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, device=self.device,
                            generator=self.generator)
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return {"generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        # a generator's state is a CPU byte tensor on every device
+        self.generator.set_state(state["generator"].cpu())
 
     def warmup_action(self, shape) -> torch.Tensor:
         """Uniform [-1, 1] warmup actions."""

@@ -2,7 +2,8 @@
 when they hold the fused SAC chain (ops/fused_sac.py, kernel K2) against a
 reference: the pins of each mode of its products, the rule for its bf16
 mode against its plain version at full width, and a way to run the loop's
-fused chain in float32 mode.
+fused chain in float32 mode; and the bit-equality of two checkpoint trees
+(`tree_diff`), which says that a resumed run is the uninterrupted one.
 
 Pins (`K2_PINS`, (rtol, atol) per group of the chain's output).  The
 float32 mode keeps those of tests/test_fused_sac.py:91-121.  The bf16 mode
@@ -115,3 +116,24 @@ def float32_chain():
         yield
     finally:
         sac_module.fused_sac_chain = chain
+
+
+def tree_diff(x, y, where: str = "") -> list[str]:
+    """The places where trees x and y (as `runtime.checkpoint.to_tree`
+    makes them) are not bit-equal: a tensor of another dtype or value, a
+    dict with other keys, a list of another length, a scalar that
+    differs, or a leaf of another type."""
+    if type(x) is not type(y):
+        return [where]
+    if isinstance(x, torch.Tensor):
+        return [] if x.dtype == y.dtype and torch.equal(x, y) else [where]
+    if isinstance(x, dict):
+        if list(x) != list(y):
+            return [where]
+        return [d for k in x for d in tree_diff(x[k], y[k], f"{where}.{k}")]
+    if isinstance(x, list):
+        if len(x) != len(y):
+            return [where]
+        return [d for i, (p, q) in enumerate(zip(x, y))
+                for d in tree_diff(p, q, f"{where}[{i}]")]
+    return [] if x == y else [where]

@@ -1,7 +1,9 @@
 """Parameter helpers (counterpart: ilswiss_tpu/utils/pytree.py).
 
 JAX lerps immutable pytrees; here the target network's tensors are
-updated in place, which saves a copy of every parameter per step.
+updated in place, which saves a copy of every parameter per step.  A
+restored checkpoint is copied into the live tensors the same way
+(`copy_into`).
 """
 
 from __future__ import annotations
@@ -28,3 +30,14 @@ def copy_params(module: nn.Module) -> nn.Module:
     out = copy.deepcopy(module)
     out.requires_grad_(False)
     return out
+
+
+@torch.no_grad()
+def copy_into(dst: torch.Tensor, src, where: str) -> None:
+    """dst <- src IN PLACE (onto dst's device and dtype); raises ValueError
+    naming `where` unless `src` is a tensor of dst's shape."""
+    if not isinstance(src, torch.Tensor) or src.shape != dst.shape:
+        got = tuple(src.shape) if isinstance(src, torch.Tensor) else src
+        raise ValueError(f"{where}: expected a tensor of shape "
+                         f"{tuple(dst.shape)}, got {got!r}")
+    dst.copy_(src)

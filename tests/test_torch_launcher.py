@@ -1,0 +1,399 @@
+"""The YAML launcher (ilswiss_tpu_torch/launchers/, logging/, utils/guards.py,
+utils/profiling.py and run_experiment.py) against the JAX package's:
+variant grids on every file under exp_specs/, byte-equal logger output,
+the schedule and evaluator rules on every exp_specs/sac/ spec, the guards
+and phase timer, routing, and `run_sac` end to end on pendulum on the CPU
+(tests/test_harness.py:139-172's tiny spec): progress.csv, snapshots, a
+full resume that continues the run bit for bit, a light resume, policy
+evaluation from the best snapshot, and the CLI in a process without JAX.
+"""
+
+import csv
+import glob
+import json
+import math
+import os
+import shutil
+import signal
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from ilswiss_tpu.launchers import experiments as jexp
+from ilswiss_tpu.launchers import variant as jvariant
+from ilswiss_tpu.logging.logger import Logger as JLogger
+from ilswiss_tpu.utils.profiling import PhaseTimer as JPhaseTimer
+from ilswiss_tpu_torch.launchers import experiments as pexp
+from ilswiss_tpu_torch.launchers import variant as pvariant
+from ilswiss_tpu_torch.logging.logger import Logger
+from ilswiss_tpu_torch.ops import fused_sac
+from ilswiss_tpu_torch.runtime.checkpoint import to_tree
+from ilswiss_tpu_torch.testing import tree_diff
+from ilswiss_tpu_torch.utils.guards import (
+    NonFiniteMetricError, PreemptionGuard, check_finite_metrics,
+)
+from ilswiss_tpu_torch.utils.profiling import PhaseTimer, trace
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+SPECS = sorted(glob.glob(str(ROOT / "exp_specs" / "**" / "*.yaml"),
+                         recursive=True))
+SAC_SPECS = sorted(glob.glob(str(ROOT / "exp_specs" / "sac" / "*.yaml")))
+EVAL_KEYS = ["AverageReturn", "MaxReturn", "MinReturn", "StdReturn",
+             "AvgPathLength"]
+# the columns of a JAX `_run_off_policy` epoch row (experiments.py:439-448)
+# and the two the logger adds
+COLUMNS = ([f"trainer/{k}" for k in fused_sac.METRIC_NAMES] + EVAL_KEYS
+           + ["TotalEnvSteps", "TrainTime", "EvalTime", "EnvStepsPerSec",
+              "Epoch", "WallTime"])
+# wall clocks: the only columns in which a resumed run may differ
+CLOCKS = {"TrainTime", "EvalTime", "EnvStepsPerSec", "WallTime"}
+
+
+def _load(path):
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+# --- variants ---------------------------------------------------------------
+def test_build_variants_match_jax_on_every_spec():
+    assert len(SPECS) == 92
+    for path in SPECS:
+        spec = _load(path)
+        assert pvariant.build_variants(spec) == jvariant.build_variants(
+            spec), path
+        flat = pvariant.flatten_dict(spec)
+        assert flat == jvariant.flatten_dict(spec), path
+        assert pvariant.unflatten_dict(flat) == jvariant.unflatten_dict(
+            flat), path
+
+
+def test_build_variants_grid_matches_jax():
+    spec = {
+        "meta_data": {"algorithm": "sac"},
+        "variables": {"seed": [0, 1, 2],
+                      "sac_params": {"qf_lr": [1e-3, 3e-4]}},
+        "constants": {"net_size": 64, "sac_params": {"discount": 0.99}},
+    }
+    variants = pvariant.build_variants(spec)
+    assert variants == jvariant.build_variants(spec) and len(variants) == 6
+
+
+@pytest.mark.parametrize("spec", [
+    {"constants": {}},
+    {"meta_data": {}, "variables": {"seed": 3}},
+    {"meta_data": {}, "variables": {"a": {"b": "x"}}},
+    {"meta_data": {}, "bogus": {}},
+])
+def test_spec_format_validation_matches_jax(spec):
+    with pytest.raises(ValueError):
+        jvariant.check_exp_spec_format(spec)
+    with pytest.raises(ValueError):
+        pvariant.check_exp_spec_format(spec)
+
+
+# --- logger -----------------------------------------------------------------
+def test_logger_output_is_byte_equal_to_jax(tmp_path):
+    variant = _load(ROOT / "exp_specs" / "sac" / "sac_hopper_optable.yaml")
+    outputs = []
+    for cls, d in ((JLogger, tmp_path / "jax"), (Logger, tmp_path / "port")):
+        lg = cls(str(d), print_to_console=False)
+        lg.save_variant(variant)
+        lg.record_dict({"a": 1.0, "b": np.float32(2.5)}, prefix="t/")
+        lg.record_tabular("WallTime", 0.5)
+        lg.dump_tabular(0)
+        lg.record_tabular("t/a", 2)
+        lg.record_tabular("late", 3.25)          # a late-appearing key
+        lg.record_tabular("WallTime", 1.5)
+        lg.dump_tabular(1)
+        lg.record_dict({"late": 4.0, "later": "x", "WallTime": 2.0})
+        lg.dump_tabular(2)
+        lg.close()
+        outputs.append([(d / n).read_bytes()
+                        for n in ("progress.csv", "variant.json")])
+    assert outputs[0] == outputs[1]
+    with open(tmp_path / "port" / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [r["late"] for r in rows] == ["", "3.25", "4.0"]
+
+
+# --- schedule, guards, timer ------------------------------------------------
+def test_grad_steps_and_eval_envs_match_jax_on_sac_specs():
+    assert len(SAC_SPECS) == 22
+    for path in SAC_SPECS:
+        for v in pvariant.build_variants(_load(path)):
+            rl = dict(v.get("rl_alg_params") or {})
+            n = int(v["env_specs"].get("env_num", 1))
+            assert pexp._grad_steps_per_iter(rl, n) == \
+                jexp._grad_steps_per_iter(rl, n), path
+            # the JAX evaluator rule, experiments.py:362-367
+            mpl = int(rl.get("max_path_length", 1000))
+            assert pexp._num_eval_envs(rl) == max(
+                int(rl.get("num_steps_per_eval", 10_000)) // mpl,
+                int(rl.get("min_eval_episodes", 32))), path
+    rl = _load(ROOT / "exp_specs/sac/sac_hopper_optable.yaml")[
+        "constants"]["rl_alg_params"]
+    assert pexp._grad_steps_per_iter(rl, 8) == 8
+    assert pexp._num_eval_envs(rl) == 32
+
+
+def test_nan_guard_and_preemption_flag():
+    msgs = []
+    assert check_finite_metrics({"a": 1.0}, 0, msgs.append)
+    assert not check_finite_metrics({"a": float("nan")}, 1, msgs.append)
+    assert "NON-FINITE" in msgs[0]
+    with pytest.raises(NonFiniteMetricError):
+        check_finite_metrics({"q": np.inf}, 2, msgs.append, abort=True)
+
+    guard = PreemptionGuard(signals=(signal.SIGUSR1,))
+    assert not guard.should_stop
+    os.kill(os.getpid(), signal.SIGUSR1)
+    assert guard.should_stop
+    guard.restore()
+
+
+def test_phase_timer_stamp_keys_match_jax_and_trace_writes_on_cpu(tmp_path):
+    stamps = []
+    for timer in (JPhaseTimer(), PhaseTimer()):
+        for name in ("train", "eval", "train"):
+            with timer.phase(name):
+                pass
+        stamps.append(timer.stamp())
+    assert sorted(stamps[0]) == sorted(stamps[1]) == [
+        "Time/eval", "Time/total", "Time/train"]
+    timer = PhaseTimer()
+    with trace(str(tmp_path / "prof")), timer.phase("train"):
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    files = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "train" in names
+    with trace(None):                   # no directory: no trace
+        pass
+
+
+# --- routing ----------------------------------------------------------------
+def _variant(tmp_path, env="pendulum", **extra):
+    v = {"seed": 0, "log_dir": str(tmp_path / "run"),
+         "print_to_console": False,
+         "env_specs": {"env_name": env, "env_num": 2}}
+    v.update(extra)
+    return v
+
+
+def test_routing_raises_naming_the_roadmap_item(tmp_path):
+    run = pexp.run_sac
+    with pytest.raises(NotImplementedError, match="item 2.8"):
+        run(_variant(tmp_path, "lunarlandercont"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.8"):
+        run(_variant(tmp_path, env_specs={"env_name": "hopper",
+                                          "force_host": True}),
+            device="cpu")
+    for env, item in (("cartpole", "2.1"), ("reach2d", "2.5"),
+                      ("pendulum_pixels", "2.7")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            run(_variant(tmp_path, env), device="cpu")
+    with pytest.raises(ValueError, match="unknown env"):
+        run(_variant(tmp_path, "no_such_env"), device="cpu")
+    # every JAX experiment name is known; the unported ones raise
+    assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
+    with pytest.raises(NotImplementedError, match="item 2.1"):
+        pexp.EXPERIMENTS["td3"](_variant(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.2"):
+        pexp.EXPERIMENTS["gail"](_variant(tmp_path), device="cpu")
+    if not torch.cuda.is_available():      # the default device is the GPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(_variant(tmp_path))
+
+
+# --- run_sac end to end on pendulum -----------------------------------------
+def _tiny(log_dir, num_epochs=2, fused=False, **rl):
+    """tests/test_harness.py:139-172's spec (4 envs, 32 x 1 nets)."""
+    spec = {
+        "meta_data": {"algorithm": "sac", "exp_name": "t"},
+        "variables": {"seed": [0]},
+        "constants": {
+            "net_size": 32, "num_hidden_layers": 1,
+            "log_dir": str(log_dir),
+            "print_to_console": False,
+            "rl_alg_params": {
+                "num_epochs": num_epochs, "num_steps_per_epoch": 64,
+                "num_steps_between_train_calls": 8,
+                "num_train_steps_per_train_call": 8,
+                "max_path_length": 100,
+                "min_steps_before_training": 32,
+                "batch_size": 32, "replay_buffer_size": 1024,
+                "freq_saving": 1, **rl,
+            },
+            "sac_params": {"reward_scale": 2.0, "use_fused_chain": fused},
+            "env_specs": {"env_name": "pendulum", "env_num": 4},
+        },
+    }
+    return pvariant.build_variants(spec)[0]
+
+
+def _rows(log_dir):
+    with open(Path(log_dir) / "progress.csv") as f:
+        return list(csv.DictReader(f))
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["eager", "fused"])
+def runs(request, tmp_path_factory):
+    """A: 2 epochs straight through; B: 1 epoch, then a full resume from
+    its log_dir to 2 epochs in the same log_dir."""
+    root = tmp_path_factory.mktemp("runs")
+    fused = request.param
+    a = pexp.run_sac(_tiny(root / "a", fused=fused), device="cpu")
+    b1 = pexp.run_sac(_tiny(root / "b", num_epochs=1, fused=fused),
+                      device="cpu")
+    b1_tree = to_tree(b1)
+    shutil.copytree(root / "b", root / "b_after_1")
+    b2 = pexp.run_sac(dict(_tiny(root / "b", fused=fused),
+                           load_params=str(root / "b")), device="cpu")
+    return dict(root=root, fused=fused, a=a, b1_tree=b1_tree, b2=b2)
+
+
+def test_run_sac_pendulum_end_to_end(runs):
+    log_dir = runs["root"] / "a"
+    rows = _rows(log_dir)
+    assert len(rows) == 2 and list(rows[0]) == COLUMNS
+    assert [float(r["TotalEnvSteps"]) for r in rows] == [96.0, 160.0]
+    for r in rows:
+        assert all(math.isfinite(float(v)) for v in r.values())
+        assert float(r["AvgPathLength"]) == 100.0
+    assert sorted(os.listdir(log_dir / "checkpoints")) == [
+        "best", "last", "meta.json"]
+    with open(log_dir / "variant.json") as f:
+        assert json.load(f) == _tiny(log_dir, fused=runs["fused"])
+    with open(log_dir / "checkpoints" / "meta.json") as f:
+        meta = json.load(f)
+    assert meta["epoch"] == 1 and meta["light"] is False
+    assert meta["best_value"] == max(float(r["AverageReturn"]) for r in rows)
+    policy = runs["a"].algo_state.policy_opt
+    assert policy.count == 2 * 16 * 4       # 2 epochs x 16 iters x K = 4
+
+
+def test_full_resume_continues_the_run_bit_for_bit(runs):
+    """The resumed runner equals the uninterrupted one in every tensor and
+    count (parameters, targets, moments, log alpha, ring, env state, step
+    count, noise generator), and so does its epoch-1 row of progress.csv
+    in every column but the wall clocks."""
+    want = to_tree(runs["a"])
+    got = to_tree(runs["b2"])
+    assert want["algo_state"]["policy_opt"]["count"] == 128
+    assert got["total_env_steps"] == want["total_env_steps"] == 160
+
+    assert tree_diff(want, got) == []
+    a_rows, b_rows = _rows(runs["root"] / "a"), _rows(runs["root"] / "b")
+    assert len(b_rows) == 2
+    for a_row, b_row in zip(a_rows, b_rows):
+        assert {k: v for k, v in a_row.items() if k not in CLOCKS} == {
+            k: v for k, v in b_row.items() if k not in CLOCKS}
+    # the 1-epoch run's end state is what the resume started from
+    assert runs["b1_tree"]["total_env_steps"] == 96
+
+
+def test_light_resume_reruns_warmup_and_offsets_total_env_steps(runs,
+                                                                tmp_path):
+    """A light snapshot ('last' holds the algo state only) resumes the
+    parameters, refills the ring through a second warmup, and logs
+    TotalEnvSteps = start_epoch * num_steps_per_epoch + the runner's count
+    (the JAX device path's convention, experiments.py:404-405)."""
+    log_dir, fused = tmp_path / "light", runs["fused"]
+    pexp.run_sac(_tiny(log_dir, num_epochs=1, fused=fused,
+                       light_snapshots=True), device="cpu")
+    with open(log_dir / "checkpoints" / "meta.json") as f:
+        assert json.load(f)["light"] is True
+    runner = pexp.run_sac(dict(_tiny(log_dir, fused=fused,
+                                     light_snapshots=True),
+                               load_params=str(log_dir)), device="cpu")
+    rows = _rows(log_dir)
+    assert [int(r["Epoch"]) for r in rows] == [0, 1]
+    # 64 resumed + 32 of the second warmup + 64 of epoch 1
+    assert runner.total_env_steps == 96 and runner.replay.size == 96
+    assert float(rows[1]["TotalEnvSteps"]) == 64 + 96
+    log = (log_dir / "debug.log").read_text()
+    assert log.count("warmup done") == 2 and "light-resumed" in log
+    # the policy continued from the snapshot: 16 + 16 iterations of K = 4
+    assert runner.algo_state.policy_opt.count == 128
+
+
+def test_fault_best_value_is_restored_on_resume(runs, tmp_path):
+    """Reference fault 1: the JAX `SnapshotManager` starts every run at
+    best_value = -inf and `_run_off_policy` never restores it
+    (checkpoint.py:125, :161), so the first epoch after a resume overwrites
+    the 'best' snapshot however bad it is.  The port seeds best_value from
+    `resume_point`: the larger of meta.json's and the 'best' snapshot's.
+    Here meta.json holds -inf, what a 'last' saved at a new best holds
+    when the run dies before its end-of-run flush, and the 'best' snapshot
+    a value the resumed epoch cannot beat."""
+    from ilswiss_tpu.runtime.checkpoint import SnapshotManager as JSnap
+    log_dir = tmp_path / "b"
+    shutil.copytree(runs["root"] / "b_after_1", log_dir)
+    ckpt = log_dir / "checkpoints"
+    for path, value in ((ckpt / "meta.json", -math.inf),
+                        (ckpt / "best" / "meta.json", 1e9)):
+        meta = json.loads(path.read_text())
+        meta["best_value"] = value
+        path.write_text(json.dumps(meta))
+    assert JSnap(str(tmp_path / "j")).best_value == -math.inf
+    pexp.run_sac(dict(_tiny(log_dir, fused=runs["fused"]),
+                      load_params=str(log_dir)), device="cpu")
+    best = json.loads((ckpt / "best" / "meta.json").read_text())
+    assert best["epoch"] == 0 and best["best_value"] == 1e9
+    assert json.loads((ckpt / "meta.json").read_text())["best_value"] == 1e9
+
+
+def test_run_eval_policy_from_the_best_snapshot(runs, tmp_path):
+    variant = {
+        "seed": 0,
+        "policy_checkpoint": str(runs["root"] / "a" / "checkpoints" / "best"),
+        "policy_net_size": 32, "policy_num_hidden_layers": 1,
+        "max_path_length": 50,
+        "log_dir": str(tmp_path / "eval"), "print_to_console": False,
+        "env_specs": {"env_name": "pendulum", "env_num": 4},
+    }
+    stats = pexp.run_eval_policy(variant, device="cpu")
+    assert set(stats) == set(EVAL_KEYS)
+    assert stats["AvgPathLength"] == 50.0
+    assert all(math.isfinite(v) for v in stats.values())
+    again = pexp.run_eval_policy(dict(variant, eval_deterministic=False,
+                                      log_dir=str(tmp_path / "e2")),
+                                 device="cpu")
+    assert again["AverageReturn"] != stats["AverageReturn"]
+    with pytest.raises(NotImplementedError, match="item 2.6"):
+        pexp.run_eval_policy(dict(variant, save_samples=True), device="cpu")
+
+
+def test_cli_runs_a_spec_in_a_process_without_jax(tmp_path):
+    spec = {"meta_data": {"algorithm": "sac", "exp_name": "t"},
+            "variables": {"seed": [0]},
+            "constants": {k: v for k, v in _tiny(tmp_path / "cli").items()
+                          if k not in ("exp_id",)}}
+    spec["constants"]["rl_alg_params"]["num_epochs"] = 1
+    path = tmp_path / "spec.yaml"
+    path.write_text(yaml.safe_dump(spec))
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['run_experiment', '-e', {str(path)!r}, "
+        "'--device', 'cpu', '-g', '3']\n"
+        "runpy.run_module('ilswiss_tpu_torch.run_experiment', "
+        "run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ilswiss_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO_JAX_OK" in out.stdout
+    assert len(_rows(tmp_path / "cli")) == 1

@@ -40,7 +40,10 @@ JAX_CLASSES = {
 }
 WIDTHS = {"hopper": 11, "ant": 105, "ant_trunc_obs": 27, "humanoid": 348,
           "humanoid_trunc_obs": 45, "swimmer": 8,
-          "inverteddoublependulum": 9, "invertedpendulum": 4}
+          "inverteddoublependulum": 9, "invertedpendulum": 4,
+          "walker": 17, "halfcheetah": 17}
+# the classic-control envs, held against JAX in test_torch_envs_classic.py
+CLASSIC = {"pendulum", "mountain"}
 
 
 def _assert_scaled_close(got, want, what=""):
@@ -192,8 +195,8 @@ def test_humanoid_step_matches_jax(jax_humanoid_step, monkeypatch):
 @pytest.mark.parametrize("name", sorted(WIDTHS))
 def test_registered_envs_step_on_cpu(name):
     """`make_vec(name, device="cpu")` resets and steps every registered
-    env at its observation width."""
-    assert set(ENV_REGISTRY) == set(WIDTHS)
+    locomotion env at its observation width."""
+    assert set(ENV_REGISTRY) == set(WIDTHS) | CLASSIC
     vec = make_vec(name, B, device="cpu")
     assert vec.env.observation_size == WIDTHS[name]
     g = torch.Generator().manual_seed(0)
