@@ -101,7 +101,23 @@ exits non-zero on any failure; no phase catches its own error.
      snapshot acting within rtol = atol = 2e-5 of the card's policy; on
      the path's own data, K1 at B = 8 and 32 from run A's end states
      (phase 3's check) and K2 at K = 8, B = 512 on batches of run A's ring
-     (phase 4b's, both modes) against their plain versions, and timed.
+     (phase 4b's, both modes) against their plain versions, and timed;
+ 10. adversarial IL through the launcher: exp_specs/gail/gail_hopper.yaml
+     copied under build/chip_smoke_gail/ with only num_epochs (162 -> 2)
+     and num_steps_per_epoch (10000 -> 400, 50 iterations an epoch) cut,
+     through `build_variants` and `EXPERIMENTS["adv_irl"]`: GAIL (gail2)
+     on hopper from demos/hopper_expert.npz at the spec's widths (SAC 256
+     x 2, discriminator 2 x 128 tanh, batch 256, 8 envs, a 20k ring,
+     demo-stats scaling, no_terminal, 8 discriminator and 8 SAC steps an
+     iteration).  Run A: 2 epochs; run B: 1 epoch, then a full resume.
+     Launch counts exact (A: K1 = 625 warmup + 2 x (50 training + 1000
+     evaluation) = 2725; B: 1675; B's resume: 1050; K2 = K3 = K4 = 0);
+     B's end state equal to A's bit for bit and its progress.csv rows but
+     for the wall clocks; every metric finite, the discriminator's among
+     them, gail2 rewards <= 0; K1 at B = 8 and 32 on run A's end states
+     against its plain version (phase 3's check); the iteration's split
+     (K1, a discriminator step, a policy step), the snapshot's size, save
+     and load time.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -269,6 +285,129 @@ LAUNCHER_SPEC = "exp_specs/sac/sac_hopper_optable.yaml"
 CLOCK_COLUMNS = {"TrainTime", "EvalTime", "EnvStepsPerSec", "WallTime"}
 
 
+def run_spec(experiment: str, variant: dict, log_dir, counters: dict,
+             num_epochs: int, **extra):
+    """One run of `variant` through the port's `EXPERIMENTS[experiment]` on
+    the card, with num_epochs, log_dir and `extra` set and no console
+    output; every launch counter is set to 0 just before the run and read
+    just after.  Returns (runner, launches, wall seconds)."""
+    import copy
+
+    import torch
+
+    from ilswiss_tpu_torch.launchers.experiments import EXPERIMENTS
+
+    v = copy.deepcopy(variant)
+    v["rl_alg_params"]["num_epochs"] = num_epochs
+    v["log_dir"] = str(log_dir)
+    v["print_to_console"] = False
+    v.update(extra)
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    runner = EXPERIMENTS[experiment](v)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return runner, {n: k.launches for n, k in counters.items()}, seconds
+
+
+def check_launches(what: str, runs) -> None:
+    """`runs`: (run name, launches read, launches expected)."""
+    for name, got, exp in runs:
+        if got != exp:
+            fail(f"{what} run {name}: launches {got}, expected {exp}")
+        print(f"{what} run {name}: launches {json.dumps(got)}")
+
+
+def progress_rows(log_dir) -> list:
+    import csv
+    with open(Path(log_dir) / "progress.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def check_progress(what: str, a_rows, b_rows, need, steps) -> None:
+    """Both runs' progress.csv: 2 rows with the `need` columns,
+    TotalEnvSteps `steps`, every value finite, and B's rows equal to A's
+    but for the wall clocks."""
+    for name, rs in (("A", a_rows), ("B", b_rows)):
+        if len(rs) != 2 or not set(need) <= set(rs[0]):
+            fail(f"{what} run {name}: progress.csv has {len(rs)} rows, "
+                 f"columns {list(rs[0]) if rs else []}")
+        if [float(r["TotalEnvSteps"]) for r in rs] != steps:
+            fail(f"{what} run {name}: TotalEnvSteps "
+                 f"{[r['TotalEnvSteps'] for r in rs]}, expected {steps}")
+        for r in rs:
+            if not all(math.isfinite(float(v)) for v in r.values()):
+                fail(f"{what} run {name}: a value of progress.csv is not "
+                     f"finite")
+    for ra, rb in zip(a_rows, b_rows):
+        da = {k: v for k, v in ra.items() if k not in CLOCK_COLUMNS}
+        db = {k: v for k, v in rb.items() if k not in CLOCK_COLUMNS}
+        if da != db:
+            fail(f"{what} progress.csv epoch {ra['Epoch']}: B differs from "
+                 f"A in {sorted(k for k in da if da[k] != db.get(k))}")
+
+
+def snapshot_times(what: str, path, runner, into, tree) -> tuple:
+    """Save `runner` as a full snapshot at `path` and restore it into the
+    runner `into`, which must then equal `tree` (`runner`'s) bit for bit.
+    Returns (MiB on disk, save seconds, load seconds)."""
+    import os
+
+    import torch
+
+    from ilswiss_tpu_torch.runtime.checkpoint import (
+        restore_checkpoint, save_checkpoint, to_tree,
+    )
+    from ilswiss_tpu_torch.testing import tree_diff
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), runner)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(Path(path) / "state.pt")
+    t0 = time.perf_counter()
+    restore_checkpoint(str(path), into)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad = tree_diff(tree, to_tree(into))
+    if bad:
+        fail(f"a {what} snapshot restored into another runner differs in "
+             f"{bad[:10]}")
+    return size / 2**20, save_s, load_s
+
+
+def k1_on_end_states(what: str, runner, n: int, k1_step, k1_check,
+                     seed: int) -> tuple:
+    """K1 at the path's batches, `n` envs (warmup and training) and 4n (the
+    32-env evaluator), from the runner's end states and actions in
+    [-1, 1]: held against its plain version (`k1_check`, phase 3's check)
+    and timed.  Returns ({B: ms}, {B: max |err|})."""
+    import torch
+
+    from ilswiss_tpu_torch.envs.locomotion import HopperDevice, _model
+    from ilswiss_tpu_torch.ops import planar_dynamics as pd
+
+    pm = pd.planar_model(_model("hopper"))
+    dev = runner.env_state.obs.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k1_ms, k1_err = {}, {}
+    for nb in (n, 4 * n):
+        q, qd, f0 = (x.repeat(nb // n, 1).t().contiguous()
+                     for x in runner.env_state.internal)
+        ctrl = 2 * torch.rand((len(pm.act_dof), nb), device=dev,
+                              generator=gen) - 1
+        k1_err[nb] = k1_check(f"K1 hopper B={nb}, {what} run A's end "
+                              f"states", pm, q, qd, ctrl, f0,
+                              HopperDevice.solver_iters)
+        print(f"K1 hopper B={nb} on {what} run A's end states: control "
+              f"step max |kernel - plain| {k1_err[nb]:.3g}; two launches "
+              f"bit-equal")
+        k1_ms[nb] = time_ms(lambda: k1_step(
+            pm, q, qd, ctrl, f0, HopperDevice.solver_iters), 50)
+    return k1_ms, k1_err
+
+
 def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
                    k2_check) -> dict:
     """Phase 9: LAUNCHER_SPEC through `build_variants` and
@@ -282,9 +421,6 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
     as the card's policy does, and K1 and K2 agree with their plain
     versions at the path's shapes on its data (`k1_check`, `k2_check`:
     phase 3's and 4b's checks).  Returns what the kernels line needs."""
-    import copy
-    import csv
-    import os
     import shutil
 
     import torch
@@ -292,12 +428,9 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
 
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
     from ilswiss_tpu_torch.data.replay import replay_sample
-    from ilswiss_tpu_torch.launchers.experiments import EXPERIMENTS
     from ilswiss_tpu_torch.launchers.variant import build_variants
     from ilswiss_tpu_torch.ops.fused_sac import METRIC_NAMES
-    from ilswiss_tpu_torch.runtime.checkpoint import (
-        restore_checkpoint, restore_subtree, save_checkpoint, to_tree,
-    )
+    from ilswiss_tpu_torch.runtime.checkpoint import restore_subtree, to_tree
     from ilswiss_tpu_torch.testing import tree_diff
 
     out = ROOT / "build" / "chip_smoke"
@@ -306,21 +439,10 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
         (variant,) = build_variants(yaml.safe_load(f))
 
     def run(name, num_epochs, **extra):
-        v = copy.deepcopy(variant)
-        v["rl_alg_params"]["num_epochs"] = num_epochs
-        v["log_dir"] = str(out / name)
         # no trace: one traced epoch took 36.3 s against 5.2 to 5.5 s and
         # wrote 526.4 MiB on the card (PERF.md); the tests cover `trace`
-        v["profile_dir"] = None
-        v["print_to_console"] = False
-        v.update(extra)
-        for k in counters.values():
-            k.launches = 0
-        t0 = time.perf_counter()
-        runner = EXPERIMENTS["sac"](v)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        return runner, {n: k.launches for n, k in counters.items()}, seconds
+        return run_spec("sac", variant, out / name, counters, num_epochs,
+                        profile_dir=None, **extra)
 
     # the launch counts, derived from the spec: K1 once per control step of
     # warmup (min_steps_before_training // env_num iterations), training
@@ -343,15 +465,15 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
     a, a_launches, a_s = run("a", 2)
     b1, b1_launches, b1_s = run("b", 1)
     b, b_launches, b_s = run("b", 2, load_params=str(out / "b"))
-    for what, got, exp, total in (
-            ("A (2 epochs)", a_launches, want(2, True), (5125, 2500)),
-            ("B (1 epoch)", b1_launches, want(1, True), (2875, 1250)),
-            ("B resumed to 2 epochs", b_launches, want(1, False),
-             (2250, 1250))):
-        if got != exp or (exp["planar_control_step"],
-                          exp["fused_sac_chain"]) != total:
-            fail(f"launcher run {what}: launches {got}, expected {exp}")
-        print(f"launcher run {what}: launches {json.dumps(got)}")
+    runs = (("A (2 epochs)", a_launches, want(2, True)),
+            ("B (1 epoch)", b1_launches, want(1, True)),
+            ("B resumed to 2 epochs", b_launches, want(1, False)))
+    if [(e["planar_control_step"], e["fused_sac_chain"])
+            for _, _, e in runs] != [(5125, 2500), (2875, 1250),
+                                     (2250, 1250)]:
+        fail(f"launcher: the spec's launch counts are not phase 9's: "
+             f"{[e for _, _, e in runs]}")
+    check_launches("launcher", runs)
     print(f"launcher runs: A {a_s:.1f} s, B {b1_s:.1f} s + resume "
           f"{b_s:.1f} s (wall time of each call), on {card}")
 
@@ -364,32 +486,12 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
           "size and episode counters, env state, env steps, noise "
           "generator)")
 
-    def rows(name):
-        with open(out / name / "progress.csv") as f:
-            return list(csv.DictReader(f))
-
-    a_rows, b_rows = rows("a"), rows("b")
+    a_rows, b_rows = progress_rows(out / "a"), progress_rows(out / "b")
     need = ([f"trainer/{k}" for k in METRIC_NAMES]
             + ["AverageReturn", "MaxReturn", "MinReturn", "StdReturn",
                "AvgPathLength", "TotalEnvSteps", "TrainTime", "EvalTime",
                "EnvStepsPerSec"])
-    for name, rs in (("A", a_rows), ("B", b_rows)):
-        if len(rs) != 2 or not set(need) <= set(rs[0]):
-            fail(f"run {name}: progress.csv has {len(rs)} rows, columns "
-                 f"{list(rs[0]) if rs else []}")
-        if [float(r["TotalEnvSteps"]) for r in rs] != [15000.0, 25000.0]:
-            fail(f"run {name}: TotalEnvSteps "
-                 f"{[r['TotalEnvSteps'] for r in rs]}, expected 15000, "
-                 f"25000")
-        for r in rs:
-            if not all(math.isfinite(float(v)) for v in r.values()):
-                fail(f"run {name}: a value of progress.csv is not finite")
-    for ra, rb in zip(a_rows, b_rows):
-        da = {k: v for k, v in ra.items() if k not in CLOCK_COLUMNS}
-        db = {k: v for k, v in rb.items() if k not in CLOCK_COLUMNS}
-        if da != db:
-            fail(f"progress.csv epoch {ra['Epoch']}: B differs from A in "
-                 f"{sorted(k for k in da if da[k] != db.get(k))}")
+    check_progress("launcher", a_rows, b_rows, need, [15000.0, 25000.0])
     epochs = [{k: float(r[k]) for k in ("TrainTime", "EvalTime",
                                         "EnvStepsPerSec", "AverageReturn")}
               for r in a_rows + b_rows]
@@ -402,21 +504,9 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
               + f", on {card}")
 
     # a full snapshot: size, save and load time
-    snap = out / "snapshot"
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    save_checkpoint(str(snap), a)
-    save_s = time.perf_counter() - t0
-    size = os.path.getsize(snap / "state.pt")
-    t0 = time.perf_counter()
-    restore_checkpoint(str(snap), b1)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    bad = tree_diff(a_tree, to_tree(b1))
-    if bad:
-        fail(f"a snapshot restored into run B's first runner differs in "
-             f"{bad[:10]}")
-    print(f"full snapshot: {size / 2**20:.1f} MiB on disk, save "
+    size, save_s, load_s = snapshot_times("launcher", out / "snapshot", a,
+                                          b1, a_tree)
+    print(f"full snapshot: {size:.1f} MiB on disk, save "
           f"{save_s:.3f} s, load {load_s:.3f} s (into a runner on the card), "
           f"on {card}")
 
@@ -460,23 +550,10 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
     plain_ms = time_ms(lambda: k2_plain(card_sac, state, batches, *eps), 5, 1)
 
     # K1 at the launcher path's batches, 8 envs (warmup and training) and
-    # 32 (the evaluator), from run A's end states and actions in [-1, 1]:
-    # held against its plain version, and timed
-    from ilswiss_tpu_torch.envs.locomotion import HopperDevice, _model
-    from ilswiss_tpu_torch.ops import planar_dynamics as pd
-    pm = pd.planar_model(_model("hopper"))
-    k1_ms, k1_err = {}, {}
-    for nb in (n, 4 * n):
-        q, qd, f0 = (x.repeat(nb // n, 1).t().contiguous()
-                     for x in a.env_state.internal)
-        ctrl = 2 * torch.rand((len(pm.act_dof), nb), device="cuda",
-                              generator=gen) - 1
-        k1_err[nb] = k1_check(f"K1 hopper B={nb}, run A's end states", pm,
-                              q, qd, ctrl, f0, HopperDevice.solver_iters)
-        print(f"K1 hopper B={nb} on run A's end states: control step max "
-              f"|kernel - plain| {k1_err[nb]:.3g}; two launches bit-equal")
-        k1_ms[nb] = time_ms(lambda: counters["planar_control_step"](
-            pm, q, qd, ctrl, f0, HopperDevice.solver_iters), 50)
+    # 32 (the evaluator), from run A's end states
+    k1_ms, k1_err = k1_on_end_states("the launcher's", a, n,
+                                     counters["planar_control_step"],
+                                     k1_check, 5)
     it_ms = 1e3 * sum(e["TrainTime"] for e in epochs) / (len(epochs) * iters)
     print(f"launcher iteration: {it_ms:.3f} ms (mean over the 4 epochs); "
           f"K1 at B = {n}: {k1_ms[n]:.4f} ms, K2 at K = {K}: {ms:.4f} ms, "
@@ -488,8 +565,211 @@ def launcher_phase(card: str, counters: dict, k2_fns, k1_check,
             "k2_k8_ms": ms, "k2_k8_plain_ms": plain_ms,
             "k2_k8_err": k2_err, "k1_ms": k1_ms, "k1_err": k1_err,
             "iteration_ms": it_ms,
-            "snapshot_mib": size / 2**20, "save_s": save_s, "load_s": load_s,
+            "snapshot_mib": size, "save_s": save_s, "load_s": load_s,
             "cross_device_err": cross_err, "epochs": epochs}
+
+
+# Phase 10: adversarial IL through the port's launcher, cut in length only
+GAIL_SPEC = "exp_specs/gail/gail_hopper.yaml"
+GAIL_CUT = {"num_epochs": 2, "num_steps_per_epoch": 400}
+GAIL_METRICS = ["disc_ce_loss", "disc_acc", "disc_grad_pen", "disc_rew_mean"]
+
+
+def gail_phase(card: str, counters: dict, k1_check) -> dict:
+    """Phase 10: a copy of GAIL_SPEC under build/chip_smoke_gail/ with
+    only GAIL_CUT changed (num_epochs 162 -> 2, num_steps_per_epoch 10000
+    -> 400: 50 iterations an epoch), its logs and print_to_console, through
+    `build_variants` and `EXPERIMENTS["adv_irl"]` on the card: GAIL (gail2
+    mode) on hopper from demos/hopper_expert.npz (4 trajectories,
+    demo-stats scaling), SAC 256 x 2, discriminator 2 x 128 tanh, batch
+    256, 8 envs, a 20k ring, no_terminal, 8 update loops an iteration.
+    Run A: 2 epochs straight through.  Run B: 1 epoch, then a full resume
+    to 2 epochs.  Fails unless the launch counts are the spec's (K1 once
+    per control step of warmup, training and the 32-env evaluation; K2, K3
+    and K4 never: the inner SAC steps run eagerly between discriminator
+    steps, acting goes through the nn.Module, hopper is planar), B's end
+    state equals A's bit for bit, progress.csv holds every metric finite
+    (gail2 rewards <= 0) and B's rows equal A's but for the wall clocks,
+    and K1 agrees with its plain version on run A's end states at B = 8
+    and 32 (`k1_check`, phase 3's check).  Times the iteration's parts:
+    K1 at B = 8, one discriminator step and one policy step (host clock,
+    synchronized, on run B's end state; their device operations and
+    device time from a torch.profiler trace), and a full snapshot's save
+    and load."""
+    import os
+    import shutil
+
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from ilswiss_tpu_torch.launchers import experiments as pexp
+    from ilswiss_tpu_torch.launchers.variant import build_variants
+    from ilswiss_tpu_torch.ops.fused_sac import METRIC_NAMES
+    from ilswiss_tpu_torch.runtime.checkpoint import to_tree
+    from ilswiss_tpu_torch.runtime.loop import Noise
+    from ilswiss_tpu_torch.testing import tree_diff
+
+    # the spec names its demos relative to the checkout's root
+    os.chdir(ROOT)
+    out = ROOT / "build" / "chip_smoke_gail"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with open(ROOT / GAIL_SPEC) as f:
+        spec = yaml.safe_load(f)
+    full = dict(spec["constants"]["rl_alg_params"])
+    spec["constants"]["rl_alg_params"].update(GAIL_CUT)
+    cut = out / "gail_hopper.yaml"
+    with open(cut, "w") as f:
+        yaml.safe_dump(spec, f)
+    with open(cut) as f:
+        (variant,) = build_variants(yaml.safe_load(f))
+
+    # the trainer the launcher builds, kept for the timings below
+    algos = []
+    run_off_policy = pexp._run_off_policy
+
+    def keep_algo(algo, *args, **kwargs):
+        algos.append(algo)
+        return run_off_policy(algo, *args, **kwargs)
+
+    def run(name, num_epochs, **extra):
+        pexp._run_off_policy = keep_algo
+        try:
+            return run_spec("adv_irl", variant, out / name, counters,
+                            num_epochs, **extra)
+        finally:
+            pexp._run_off_policy = run_off_policy
+
+    rl = variant["rl_alg_params"]
+    n = variant["env_specs"]["env_num"]
+    warm = rl["min_steps_before_training"] // n
+    iters = rl["num_steps_per_epoch"] // n
+    evals = rl["max_path_length"]
+
+    def want(epochs, warmup):
+        return {"planar_control_step": (warm if warmup else 0)
+                + epochs * (iters + evals), "planar_forward": 0,
+                "fused_sac_chain": 0, "fused_policy_forward": 0,
+                "pgs_solve": 0}
+
+    a, a_launches, a_s = run("a", 2)
+    b1, b1_launches, b1_s = run("b", 1)
+    b, b_launches, b_s = run("b", 2, load_params=str(out / "b"))
+    check_launches("GAIL", (("A (2 epochs)", a_launches, want(2, True)),
+                            ("B (1 epoch)", b1_launches, want(1, True)),
+                            ("B resumed to 2 epochs", b_launches,
+                             want(1, False))))
+    print(f"GAIL runs: A {a_s:.1f} s, B {b1_s:.1f} s + resume {b_s:.1f} s "
+          f"(wall time of each call), on {card}")
+
+    a_tree = to_tree(a)
+    bad = tree_diff(a_tree, to_tree(b))
+    if bad:
+        fail(f"the resumed GAIL run B differs from run A in {bad[:10]}")
+    print("GAIL resume: B's end state equals A's bit for bit (the "
+          "discriminator and its Adam, the SAC state, the expert buffer, "
+          "the ring, the env state, the noise generator)")
+
+    a_rows, b_rows = progress_rows(out / "a"), progress_rows(out / "b")
+    need = ([f"trainer/{k}" for k in GAIL_METRICS]
+            + [f"trainer/policy_{k}" for k in METRIC_NAMES]
+            + ["AverageReturn", "StdReturn", "AvgPathLength",
+               "TotalEnvSteps", "TrainTime", "EvalTime", "EnvStepsPerSec"])
+    check_progress("GAIL", a_rows, b_rows, need,
+                   [float(rl["min_steps_before_training"] + (e + 1)
+                          * rl["num_steps_per_epoch"]) for e in range(2)])
+    for r in a_rows + b_rows:
+        if float(r["trainer/disc_rew_mean"]) > 0:
+            fail(f"GAIL: gail2 rewards are log D <= 0, a mean reads "
+                 f"{r['trainer/disc_rew_mean']}")
+    keys = ["TrainTime", "EvalTime", "EnvStepsPerSec", "AverageReturn"] \
+        + [f"trainer/{k}" for k in GAIL_METRICS]
+    epochs = [{k: float(r[k]) for k in keys} for r in a_rows + b_rows]
+    for (run_name, ep), e in zip((("A", 0), ("A", 1), ("B", 0), ("B", 1)),
+                                 epochs):
+        print(f"GAIL run {run_name} epoch {ep}: TrainTime "
+              f"{e['TrainTime']:.3f} s, EvalTime {e['EvalTime']:.3f} s, "
+              f"EnvStepsPerSec {e['EnvStepsPerSec']:.1f}, AverageReturn "
+              f"{e['AverageReturn']:.3f}, "
+              + ", ".join(f"{k} {e[f'trainer/{k}']:.4g}"
+                          for k in GAIL_METRICS) + f", on {card}")
+
+    size, save_s, load_s = snapshot_times("GAIL", out / "snapshot", a, b1,
+                                          a_tree)
+    print(f"GAIL full snapshot: {size:.1f} MiB on disk, save "
+          f"{save_s:.3f} s, load {load_s:.3f} s, on {card}")
+    k1_ms, k1_err = k1_on_end_states("GAIL", a, n,
+                                     counters["planar_control_step"],
+                                     k1_check, 11)
+
+    # the iteration's update steps, on run B's end state (B is not read
+    # again): one discriminator step and one policy step, host clock over
+    # 20 of each after 3 unmeasured; then what one step asks of the
+    # device, its device operations (kernels, copies) and their summed
+    # device time, from a torch.profiler trace of 3 steps
+    algo = algos[-1]
+    noise = Noise(123, a.env_state.obs.device)
+
+    def step_ms(fn, reps=20, warmup=3):
+        for _ in range(warmup):
+            fn(b.algo_state, b.replay, noise)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(b.algo_state, b.replay, noise)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    def step_device(fn, reps=3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(b.algo_state, b.replay, noise)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return len(ops) / reps, sum(e.device_time for e in ops) / reps / 1e3
+
+    disc_ms = step_ms(algo._disc_update)
+    policy_ms = step_ms(algo._policy_update)
+    disc_ops, disc_dev_ms = step_device(algo._disc_update)
+    policy_ops, policy_dev_ms = step_device(algo._policy_update)
+    print(f"GAIL update steps: a discriminator step {disc_ops:.0f} device "
+          f"operations, {disc_dev_ms:.3f} ms of device time in "
+          f"{disc_ms:.3f} ms of wall time; a policy step {policy_ops:.0f}, "
+          f"{policy_dev_ms:.3f} ms in {policy_ms:.3f} ms; on {card}")
+    cfg = algo.config
+    loops = cfg.num_update_loops_per_train_call
+    n_disc = loops * cfg.num_disc_updates_per_loop_iter
+    n_pol = loops * cfg.num_policy_updates_per_loop_iter
+    it_ms = 1e3 * sum(e["TrainTime"] for e in epochs) / (len(epochs) * iters)
+    parts = k1_ms[n] + n_disc * disc_ms + n_pol * policy_ms
+    busy = k1_ms[n] + n_disc * disc_dev_ms + n_pol * policy_dev_ms
+    print(f"GAIL iteration: {it_ms:.3f} ms (mean over the 4 epochs); K1 at "
+          f"B = {n}: {k1_ms[n]:.4f} ms, {n_disc} discriminator steps x "
+          f"{disc_ms:.3f} ms, {n_pol} policy (SAC) steps x "
+          f"{policy_ms:.3f} ms: {parts / it_ms:.1%} of it; the device "
+          f"busy for about {busy / it_ms:.1%} of it (K1 and the steps' "
+          f"device time; acting and the ring not counted); K1 at "
+          f"B = {4 * n} (the evaluator): {k1_ms[4 * n]:.4f} ms of a "
+          f"{1e3 * sum(e['EvalTime'] for e in epochs) / (4 * evals):.3f} ms "
+          f"control step; on {card}")
+    full_iters = full["num_steps_per_epoch"] // n
+    full_h = (it_ms * 1e-3 * full_iters + sum(
+        e["EvalTime"] for e in epochs) / len(epochs)) \
+        * full["num_epochs"] / 3600
+    print(f"GAIL spec at full length ({full['num_epochs']} epochs of "
+          f"{full_iters} iterations and an evaluation each), at these "
+          f"rates: {full_h:.2f} h, on {card}")
+    return {"launches": a_launches, "resumed_launches": b_launches,
+            "k1_ms": k1_ms, "k1_err": k1_err, "iteration_ms": it_ms,
+            "disc_step_ms": disc_ms, "policy_step_ms": policy_ms,
+            "disc_device_ms": disc_dev_ms, "policy_device_ms": policy_dev_ms,
+            "disc_ops": disc_ops, "policy_ops": policy_ops,
+            "device_busy_share": busy / it_ms,
+            "snapshot_mib": size, "save_s": save_s, "load_s": load_s,
+            "full_spec_hours": full_h, "epochs": epochs}
 
 
 def main() -> int:
@@ -1208,6 +1488,12 @@ def main() -> int:
                "fused_sac_chain": k2, "fused_policy_forward": k3,
                "pgs_solve": k4},
         (k2, fused_sac.fused_sac_chain_plain), k1_step_check, k2_modes)
+    # ---- 10. adversarial IL: gail_hopper.yaml, save and resume ------------
+    gail = gail_phase(
+        card, {"planar_control_step": k1s, "planar_forward": k1,
+               "fused_sac_chain": k2, "fused_policy_forward": k3,
+               "pgs_solve": k4}, k1_step_check)
+
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
           f"bf16): {launcher['k2_k8_ms']:.4f} ms per launch, plain version "
@@ -1226,7 +1512,9 @@ def main() -> int:
          "ms_per_evaluation": k1_eval_ms, "ms_b1024": k1_times[1024],
          "launcher": {f"b{b}": {"ms": v,
                                 "max_abs_err": launcher["k1_err"][b]}
-                      for b, v in launcher["k1_ms"].items()}},
+                      for b, v in launcher["k1_ms"].items()},
+         "gail": {f"b{b}": {"ms": v, "max_abs_err": gail["k1_err"][b]}
+                  for b, v in gail["k1_ms"].items()}},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
@@ -1279,9 +1567,11 @@ def main() -> int:
     ]
     # K1's count is the hopper main path's (its control-step mode), K4's
     # the ant main path's; K2 and K3 run on all three, and the line carries
-    # the ant path's; `launches_by_path` adds the launcher's run A
+    # the ant path's; `launches_by_path` adds the launcher's run A and the
+    # GAIL launcher's run A
     paths = {"hopper": hopper_launches, "ant": ant_launches,
-             "humanoid": humanoid_launches, "launcher": launcher["launches"]}
+             "humanoid": humanoid_launches, "launcher": launcher["launches"],
+             "gail": gail["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -1,0 +1,322 @@
+"""Adversarial imitation learning: GAIL, AIRL, FAIRL (counterpart:
+ilswiss_tpu/algorithms/adv_irl.py; `AdvIRLConfig`, `AdvIRLState`,
+`AdvIRL`).
+
+The reference AdvIRL (rlkit/torch/algorithms/adv_irl/adv_irl.py:15-329):
+a discriminator trained to tell expert transitions from the policy's,
+wrapped around an inner off-policy trainer (the port's SAC) that learns
+from rewards the current discriminator synthesizes.
+
+  - disc input: [obs, action], or [obs, next_obs] when `state_only`;
+  - BCE with logits, expert target 1, policy target 0;
+  - the Gulrajani gradient penalty on per-row interpolates
+    x~ = eps * expert + (1 - eps) * policy:
+    weight * mean((sqrt(max(sum(g^2), 1e-12)) - 1)^2), g = d sum(disc(x~))
+    / d x~, taken by `torch.autograd.grad(..., create_graph=True)` where
+    JAX takes `jax.grad` inside the loss; with BatchNorm on, that forward
+    normalizes by the interpolates' own batch statistics (train mode), and
+    only the main forward's statistics move the running averages;
+  - rewards per mode: airl logits, gail softplus(logits), gail2
+    -softplus(-logits) (log D), fairl exp(logits) * (-logits), then the
+    optional clips, from the discriminator in eval mode;
+  - optional reward normalization by a running (Welford) std;
+  - one train call: `num_update_loops_per_train_call` x
+    (`num_disc_updates_per_loop_iter` discriminator steps, then
+    `num_policy_updates_per_loop_iter` inner-trainer steps), the metrics
+    averaged per loop and then over the loops.
+
+Draws.  Every random number comes from the runner's `noise`
+(runtime/loop.py::Noise), in this order, so a test can replay the JAX
+package's draws:
+  - each discriminator step: `replay(disc_optim_batch_size)` for the
+    expert rows, `replay(disc_optim_batch_size)` for the policy rows,
+    `interpolation(disc_optim_batch_size)` for eps (drawn with the penalty
+    off too);
+  - each policy step: `replay(policy_optim_batch_size - n_exp)` for the
+    policy rows, `replay(n_exp)` for the expert rows when
+    `policy_optim_batch_size_from_expert` n_exp > 0, then
+    `train((policy_optim_batch_size, action_size))`, SAC's two normals.
+The JAX package derives the same draws from its keys (adv_irl.py:259-262,
+:372-393, :451-483).
+
+As the port's SAC, the update runs in place: the discriminator's
+parameters, running averages and Adam moments, and the inner state, are
+updated in their tensors, and the same state object is returned.  The
+trajectory-window (rnn) discriminator is ROADMAP.md section 1 item 2.2's
+remaining part, the image (cnn) one and frozen-encoder features item 2.7:
+both raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from ilswiss_tpu_torch.algorithms.sac import Adam
+from ilswiss_tpu_torch.data.replay import ReplayState, replay_sample
+from ilswiss_tpu_torch.models.discriminators import MLPDisc
+
+MODES = ("airl", "gail", "gail2", "fairl")
+# the discriminator's init draws come from a CPU generator of their own,
+# seeded apart from the inner trainer's (`seed`) and the loop's noise
+# (`seed + 1`, evaluation `seed + epoch + 1`)
+DISC_SEED_OFFSET = 1 << 30
+
+
+@dataclass(frozen=True)
+class AdvIRLConfig:
+    mode: str = "gail"  # airl | gail | gail2 | fairl
+    state_only: bool = False
+    disc_optim_batch_size: int = 1024
+    policy_optim_batch_size: int = 1024
+    policy_optim_batch_size_from_expert: int = 0
+    num_update_loops_per_train_call: int = 1
+    num_disc_updates_per_loop_iter: int = 1
+    num_policy_updates_per_loop_iter: int = 1
+    disc_lr: float = 1e-3
+    disc_momentum: float = 0.0
+    use_grad_pen: bool = True
+    grad_pen_weight: float = 10.0
+    rew_clip_min: float | None = None
+    rew_clip_max: float | None = None
+    # divide synthesized rewards by a running std (see the JAX config:
+    # the repair of the GAIL alpha ratchet, tests/test_alpha_ratchet.py)
+    reward_norm: bool = False
+    disc_num_blocks: int = 2
+    disc_hid_dim: int = 100
+    disc_hid_act: str = "relu"
+    disc_use_bn: bool = True
+    disc_clamp_magnitude: float = 10.0
+    # mlp only; rnn (item 2.2) and cnn (item 2.7) raise
+    disc_type: str = "mlp"
+
+
+@dataclass
+class AdvIRLState:
+    disc: MLPDisc            # parameters and BatchNorm running averages
+    disc_opt: Adam
+    policy: Any              # the inner trainer's state (SACState)
+    expert: ReplayState      # the demos, a full buffer
+    # running (count, mean, m2) of synthesized rewards, 0-d tensors, when
+    # config.reward_norm; None otherwise
+    rew_stats: Any = None
+
+
+def _means(metrics: List[Dict[str, torch.Tensor]]
+           ) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in metrics]).mean()
+            for k in metrics[0]}
+
+
+class AdvIRL:
+    """`policy_trainer` is an off-policy trainer with `init(seed)`,
+    `act(state, obs, eps, deterministic)` and `train_step(state, batch,
+    eps_next, eps_new)` (SAC); `expert_replay` the demo buffer
+    (data/demo.py).  The loop calls `train_call(state, replay, noise)` in
+    place of its own gradient steps (the reference's _do_training
+    override)."""
+
+    def __init__(self, obs_size: int, action_size: int, policy_trainer,
+                 expert_replay: ReplayState,
+                 config: AdvIRLConfig = AdvIRLConfig(), feature_fn=None):
+        if config.mode not in MODES:
+            raise ValueError(f"unknown AdvIRL mode {config.mode!r}; "
+                             f"known: {MODES}")
+        not_ported = "is not ported to ilswiss_tpu_torch yet: ROADMAP.md " \
+            "section 1 item"
+        if config.disc_type == "rnn":
+            raise NotImplementedError(
+                f"the trajectory-window (rnn) discriminator "
+                f"(models/rnn_discriminators.py, replay_sample_window) "
+                f"{not_ported} 2.2")
+        if config.disc_type == "cnn" or feature_fn is not None:
+            raise NotImplementedError(
+                f"the visual AdvIRL (cnn discriminator, encoder features) "
+                f"{not_ported} 2.7")
+        if config.disc_type != "mlp":
+            raise ValueError(f"unknown disc_type {config.disc_type!r}")
+        self.config = config
+        self.obs_size = obs_size
+        self.action_size = action_size
+        self.policy_trainer = policy_trainer
+        self.expert_replay = expert_replay
+        self.device = policy_trainer.device
+        self.disc_input_dim = (2 * obs_size if config.state_only
+                               else obs_size + action_size)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int) -> AdvIRLState:
+        """Fresh state: the inner trainer's from `seed`, the
+        discriminator's from a CPU generator seeded `seed +
+        DISC_SEED_OFFSET` (flax Dense's init: lecun_normal kernels, zero
+        biases), and a private copy of the demos on the trainer's
+        device."""
+        cfg = self.config
+        policy = self.policy_trainer.init(seed)
+        gen = torch.Generator().manual_seed(seed + DISC_SEED_OFFSET)
+        disc = MLPDisc(self.disc_input_dim, gen,
+                       num_layer_blocks=cfg.disc_num_blocks,
+                       hid_dim=cfg.disc_hid_dim, hid_act=cfg.disc_hid_act,
+                       use_bn=cfg.disc_use_bn,
+                       clamp_magnitude=cfg.disc_clamp_magnitude
+                       ).to(self.device)
+        e = self.expert_replay
+        copy = lambda t: t.to(self.device, copy=True)  # noqa: E731
+        expert = ReplayState(
+            data={k: copy(v) for k, v in e.data.items()},
+            ep_id=copy(e.ep_id), ptr=e.ptr, size=e.size,
+            env_ep=copy(e.env_ep))
+        zero = lambda: torch.zeros((), device=self.device)  # noqa: E731
+        return AdvIRLState(
+            disc=disc,
+            disc_opt=Adam(disc.parameters(), cfg.disc_lr,
+                          b1=cfg.disc_momentum, b2=0.999),
+            policy=policy,
+            expert=expert,
+            rew_stats=(zero(), zero(), zero()) if cfg.reward_norm else None,
+        )
+
+    def act(self, state: AdvIRLState, obs: torch.Tensor,
+            eps: torch.Tensor | None = None,
+            deterministic: bool = False) -> torch.Tensor:
+        return self.policy_trainer.act(state.policy, obs, eps,
+                                       deterministic=deterministic)
+
+    # ------------------------------------------------------------------
+    def _disc_input(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        other = batch["next_obs"] if self.config.state_only \
+            else batch["action"]
+        return torch.cat([batch["obs"], other], dim=-1)
+
+    def _disc_update(self, state: AdvIRLState, replay: ReplayState, noise
+                     ) -> tuple[AdvIRLState, Dict[str, torch.Tensor]]:
+        """One discriminator step (JAX `_disc_update`, adv_irl.py:259-348),
+        in place."""
+        cfg = self.config
+        n = cfg.disc_optim_batch_size
+        expert_in = self._disc_input(
+            replay_sample(state.expert, noise.replay(n)))
+        policy_in = self._disc_input(replay_sample(replay, noise.replay(n)))
+        eps = noise.interpolation(n)
+        x = torch.cat([expert_in, policy_in], dim=0)
+        targets = torch.cat([torch.ones((n, 1), device=x.device),
+                             torch.zeros((n, 1), device=x.device)])
+
+        disc = state.disc
+        stats: list = []
+        logits = disc(x, train=True, stats=stats)
+        ce = torch.mean(F.softplus(logits) - targets * logits)
+        acc = torch.mean(((logits > 0) == (targets > 0.5)).float())
+        loss = ce
+        if cfg.use_grad_pen:
+            interp = (eps * expert_in + (1.0 - eps) * policy_in
+                      ).requires_grad_(True)
+            (g,) = torch.autograd.grad(
+                torch.sum(disc(interp, train=True)), interp,
+                create_graph=True)
+            norm = torch.sqrt(torch.clamp_min(torch.sum(g * g, dim=-1),
+                                              1e-12))
+            grad_pen = torch.mean((norm - 1.0) ** 2)
+            loss = ce + cfg.grad_pen_weight * grad_pen
+        else:
+            grad_pen = torch.zeros((), device=x.device)
+        grads = torch.autograd.grad(loss, state.disc_opt.params)
+        state.disc_opt.step(grads)
+        disc.update_batch_stats(stats)
+        return state, {"disc_ce_loss": ce.detach(), "disc_acc": acc,
+                       "disc_grad_pen": grad_pen.detach()}
+
+    # ------------------------------------------------------------------
+    def _mode_reward(self, logits: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        if cfg.mode == "airl":
+            rew = logits
+        elif cfg.mode == "gail":
+            rew = F.softplus(logits)
+        elif cfg.mode == "gail2":
+            rew = -F.softplus(-logits)       # log D
+        else:                                # fairl
+            rew = torch.exp(logits) * (-logits)
+        if cfg.rew_clip_max is not None:
+            rew = torch.clamp_max(rew, cfg.rew_clip_max)
+        if cfg.rew_clip_min is not None:
+            rew = torch.clamp_min(rew, cfg.rew_clip_min)
+        return rew
+
+    @torch.no_grad()
+    def synthesize_rewards(self, state: AdvIRLState,
+                           batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """[B] rewards of `batch` from the discriminator in eval mode."""
+        logits = state.disc(self._disc_input(batch), train=False)
+        return self._mode_reward(logits[..., 0])
+
+    def _policy_update(self, state: AdvIRLState, replay: ReplayState, noise
+                       ) -> tuple[AdvIRLState, Dict[str, torch.Tensor]]:
+        """One inner-trainer step on synthesized rewards (JAX
+        `_policy_update`, adv_irl.py:372-416), in place."""
+        cfg = self.config
+        n_exp = cfg.policy_optim_batch_size_from_expert
+        batch = replay_sample(
+            replay, noise.replay(cfg.policy_optim_batch_size - n_exp))
+        if n_exp > 0:
+            exp = replay_sample(state.expert, noise.replay(n_exp))
+            batch = {k: torch.cat([batch[k], exp[k]], dim=0) for k in batch}
+        batch["reward"] = self.synthesize_rewards(state, batch)
+        if cfg.reward_norm:
+            state, batch["reward"] = self._normalize_rewards(
+                state, batch["reward"])
+        eps_next, eps_new = noise.train(
+            (cfg.policy_optim_batch_size, self.action_size))
+        state.policy, pol_metrics = self.policy_trainer.train_step(
+            state.policy, batch, eps_next, eps_new)
+        metrics = {f"policy_{k}": v for k, v in pol_metrics.items()}
+        metrics["disc_rew_mean"] = torch.mean(batch["reward"])
+        return state, metrics
+
+    def _normalize_rewards(self, state: AdvIRLState, rew: torch.Tensor,
+                           weight: torch.Tensor | None = None
+                           ) -> tuple[AdvIRLState, torch.Tensor]:
+        """Merge the batch into the running (count, mean, m2) (Welford),
+        then divide by the running std, not centered (JAX
+        `_normalize_rewards`, adv_irl.py:418-449).  `weight` (0/1) leaves
+        masked rows out of the moments; an all-masked batch leaves them
+        as they were."""
+        count, mean, m2 = state.rew_stats
+        r = rew.reshape(-1)
+        if weight is None:
+            n_b = torch.tensor(float(r.shape[0]), device=r.device)
+            mean_b = torch.mean(r)
+            m2_b = torch.sum((r - mean_b) ** 2)
+        else:
+            w = weight.reshape(-1)
+            n_b = torch.sum(w)
+            mean_b = torch.sum(w * r) / torch.clamp_min(n_b, 1.0)
+            m2_b = torch.sum(w * (r - mean_b) ** 2)
+        delta = mean_b - mean
+        n = count + n_b
+        denom = torch.clamp_min(n, 1.0)
+        mean = mean + delta * n_b / denom
+        m2 = m2 + m2_b + delta ** 2 * count * n_b / denom
+        std = torch.sqrt(torch.clamp_min(
+            m2 / torch.clamp_min(n - 1.0, 1.0), 1e-12))
+        state.rew_stats = (n, mean, m2)
+        return state, rew / (std + 1e-8)
+
+    # ------------------------------------------------------------------
+    def train_call(self, state: AdvIRLState, replay: ReplayState, noise
+                   ) -> tuple[AdvIRLState, Dict[str, torch.Tensor]]:
+        """One reference train call (adv_irl.py:126-131; JAX `train_call`,
+        :451-483): the nested discriminator / policy loop, in place.
+        Returns the metrics' means, 0-d tensors on the device."""
+        cfg = self.config
+        loops = []
+        for _ in range(cfg.num_update_loops_per_train_call):
+            disc_m = [self._disc_update(state, replay, noise)[1]
+                      for _ in range(cfg.num_disc_updates_per_loop_iter)]
+            pol_m = [self._policy_update(state, replay, noise)[1]
+                     for _ in range(cfg.num_policy_updates_per_loop_iter)]
+            loops.append({**_means(disc_m), **_means(pol_m)})
+        return state, _means(loops)

@@ -1,0 +1,154 @@
+"""Env wrappers of the demo statistics and of absorbing states
+(counterpart: ilswiss_tpu/envs/wrappers.py; `ScaledEnv`, `AbsorbingEnv`,
+`MinmaxEnv`).
+
+Each wraps a port `Environment` and keeps its batched API: `reset` takes
+the reset noise (`sample_reset_noise` is the inner env's), `step` the
+batched state and Box action, so `VectorEnv`'s branchless autoreset
+selects a wrapped state as it selects the inner one.  The reference's
+wrappers are rlkit/envs/wrappers.py:53 (ScaledEnv) and :143 (MinmaxEnv);
+the absorbing states are DAC's (adv_irl.py:144-171).  `FrameStackEnv`
+and `DiscretEnv` come with ROADMAP.md section 1 items 2.7 and 2.5.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ilswiss_tpu_torch.envs.base import Environment, EnvState, StepOutput
+
+
+class _DelegatingEnv(Environment):
+    """Sizes, bounds, horizon and device of the inner env."""
+
+    def __init__(self, inner: Environment):
+        self.inner = inner
+        self.observation_size = inner.observation_size
+        self.action_size = inner.action_size
+        self.discrete = inner.discrete
+        self.max_episode_steps = inner.max_episode_steps
+        self.action_low = inner.action_low
+        self.action_high = inner.action_high
+        self.device = inner.device
+
+    def sample_reset_noise(self, n: int, generator: torch.Generator):
+        return self.inner.sample_reset_noise(n, generator)
+
+    def scale_action(self, normalized: torch.Tensor) -> torch.Tensor:
+        return self.inner.scale_action(normalized)
+
+    def _vector(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=self.device)
+
+
+class _ObsMapEnv(_DelegatingEnv):
+    """An elementwise map of every observation the inner env returns."""
+
+    def _scale_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _inner_action(self, action: torch.Tensor) -> torch.Tensor:
+        return action
+
+    def reset(self, noise) -> EnvState:
+        s = self.inner.reset(noise)
+        return EnvState(internal=s.internal, obs=self._scale_obs(s.obs),
+                        t=s.t)
+
+    def step(self, state: EnvState, action: torch.Tensor) -> StepOutput:
+        out = self.inner.step(state, self._inner_action(action))
+        obs = self._scale_obs(out.obs)
+        return StepOutput(
+            state=EnvState(internal=out.state.internal, obs=obs,
+                           t=out.state.t),
+            obs=obs, reward=out.reward, terminal=out.terminal,
+            truncation=out.truncation)
+
+
+class ScaledEnv(_ObsMapEnv):
+    """obs -> (obs - mean) / (std + 1e-8); with action statistics, the
+    agent's actions are unscaled, a * (std + 1e-8) + mean, before the true
+    step (JAX `ScaledEnv`, wrappers.py:45-83)."""
+
+    def __init__(self, inner: Environment, obs_mean=None, obs_std=None,
+                 acts_mean=None, acts_std=None):
+        super().__init__(inner)
+        vec = lambda x: None if x is None else self._vector(x)  # noqa: E731
+        self.obs_mean, self.obs_std = vec(obs_mean), vec(obs_std)
+        self.acts_mean, self.acts_std = vec(acts_mean), vec(acts_std)
+
+    def _scale_obs(self, obs):
+        if self.obs_mean is None:
+            return obs
+        return (obs - self.obs_mean) / (self.obs_std + 1e-8)
+
+    def _inner_action(self, action):
+        if self.acts_mean is None:
+            return action
+        return action * (self.acts_std + 1e-8) + self.acts_mean
+
+
+class MinmaxEnv(_ObsMapEnv):
+    """obs -> (obs - min) / (max - min + 1e-8) (JAX `MinmaxEnv`,
+    wrappers.py:243-266)."""
+
+    def __init__(self, inner: Environment, obs_min, obs_max):
+        super().__init__(inner)
+        self.obs_min = self._vector(obs_min)
+        self.obs_max = self._vector(obs_max)
+
+    def _scale_obs(self, obs):
+        return (obs - self.obs_min) / (self.obs_max - self.obs_min + 1e-8)
+
+
+class AbsorbingEnv(_DelegatingEnv):
+    """DAC absorbing states (JAX `AbsorbingEnv`, wrappers.py:85-155).
+
+    Observations gain a trailing flag (0 normal, 1 absorbing).  When the
+    inner env terminates, the episode does not end: the next observation is
+    the absorbing state (zeros, flag 1), and the step after it is the
+    absorbing self-loop, with reward 0 and terminal set, which ends the
+    episode.  The inner env is stepped on that step too, and its result is
+    dropped, as in the JAX package.  The state's `internal` is the inner
+    env's tensors followed by the [B] bool "in the absorbing state"; the
+    truncation horizon stays the inner env's, and `max_episode_steps` says
+    one more, as the JAX attribute does."""
+
+    def __init__(self, inner: Environment):
+        super().__init__(inner)
+        self.observation_size = inner.observation_size + 1
+        self.max_episode_steps = inner.max_episode_steps + 1
+
+    @staticmethod
+    def _pad(obs: torch.Tensor, flag: float) -> torch.Tensor:
+        return torch.cat([obs, torch.full_like(obs[:, :1], flag)], dim=-1)
+
+    def reset(self, noise) -> EnvState:
+        s = self.inner.reset(noise)
+        absorbing = torch.zeros(s.obs.shape[0], dtype=torch.bool,
+                                device=s.obs.device)
+        return EnvState(internal=tuple(s.internal) + (absorbing,),
+                        obs=self._pad(s.obs, 0.0), t=s.t)
+
+    def step(self, state: EnvState, action: torch.Tensor) -> StepOutput:
+        *inner_internal, in_absorbing = state.internal
+        out = self.inner.step(
+            EnvState(internal=tuple(inner_internal),
+                     obs=state.obs[:, :-1], t=state.t), action)
+        entered = out.terminal
+        absorb_obs = self._pad(torch.zeros_like(out.obs), 1.0)
+        col = lambda m: m[:, None]  # noqa: E731
+        normal_obs = torch.where(col(entered), absorb_obs,
+                                 self._pad(out.obs, 0.0))
+        obs = torch.where(col(in_absorbing), absorb_obs, normal_obs)
+        return StepOutput(
+            state=EnvState(internal=tuple(out.state.internal) + (entered,),
+                           obs=obs, t=out.state.t),
+            obs=obs,
+            reward=torch.where(in_absorbing, torch.zeros_like(out.reward),
+                               out.reward),
+            terminal=in_absorbing,
+            truncation=torch.logical_and(out.truncation,
+                                         torch.logical_not(entered)))

@@ -1,5 +1,5 @@
 """Variant-dict -> training run (counterpart:
-ilswiss_tpu/launchers/experiments.py; the SAC part).
+ilswiss_tpu/launchers/experiments.py; the SAC and AdvIRL parts).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -26,7 +26,7 @@ import os
 import time
 from typing import Any, Callable, Dict
 
-from ilswiss_tpu_torch.envs import ENV_REGISTRY, make_vec
+from ilswiss_tpu_torch.envs import ENV_REGISTRY, make, make_vec
 from ilswiss_tpu_torch.envs.vector import VectorEnv
 from ilswiss_tpu_torch.logging.logger import Logger
 from ilswiss_tpu_torch.runtime.checkpoint import (
@@ -141,6 +141,26 @@ def _setup(variant: Dict, default_exp_name: str):
     )
     logger.save_variant(variant)
     return seed, env_name, env_kwargs, num_envs, rl, logger
+
+
+def _resolve_demo_path(variant: Dict) -> str:
+    """`demo_path` directly, or `expert_name` looked up in the demos
+    listing (`demos_listing`, default demos_listing.yaml; the reference's
+    indirection, adv_irl_exp_script.py:31-34).  Relative paths are the
+    working directory's, as in the JAX package."""
+    if variant.get("demo_path"):
+        return variant["demo_path"]
+    name = variant.get("expert_name")
+    if not name:
+        raise KeyError("variant needs 'demo_path' or 'expert_name'")
+    import yaml
+    listing_path = variant.get("demos_listing", "demos_listing.yaml")
+    with open(listing_path) as f:
+        listing = yaml.safe_load(f)
+    if name not in listing:
+        raise KeyError(f"expert '{name}' not in {listing_path}; "
+                       f"known: {sorted(listing)}")
+    return listing[name]["file_path"]
 
 
 def _grad_steps_per_iter(rl: Dict, num_envs: int) -> int:
@@ -321,6 +341,152 @@ def run_sac(variant: Dict[str, Any], device=None):
     return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
 
 
+def _q_target_bounds(variant: Dict, mode: str, sp: Dict
+                     ) -> tuple[float | None, float | None]:
+    """Soft-Q target bounds from the reward mode (JAX
+    experiments.py:1052-1069): the logits are clamped to +-clamp, so gail
+    rewards lie in [0, clamp], gail2 in [-clamp, 0] and airl in [-clamp,
+    clamp]; times reward_scale, plus or minus a margin of 10 for the
+    entropy bonus, over 1 - discount.  fairl's e^x (-x) has no useful
+    bound: None."""
+    clamp = float(variant.get("disc_clamp_magnitude", 10.0))
+    scale = float(sp.get("reward_scale", 2.0))
+    gamma = float(sp.get("discount", 0.99))
+    margin = 10.0
+    bounds = {
+        "gail": (0.0, scale * clamp),
+        "gail2": (-scale * clamp, 0.0),
+        "airl": (-scale * clamp, scale * clamp),
+    }
+    if mode not in bounds:
+        return None, None
+    rmin, rmax = bounds[mode]
+    return (rmin - margin) / (1.0 - gamma), (rmax + margin) / (1.0 - gamma)
+
+
+def run_adv_irl(variant: Dict[str, Any], device=None):
+    """GAIL / AIRL / FAIRL (reference run_scripts/adv_irl_exp_script.py;
+    the JAX `run_adv_irl`'s device branch, experiments.py:978-1148): demos
+    from `demo_path` or `expert_name`, `traj_num` subsetting, demo-stats
+    env scaling (`scale_env_with_demo_stats` / `minmax_env_with_demo_stats`,
+    the env and the demos alike), DAC absorbing states (`wrap_absorbing`)
+    and `no_terminal` storage; evaluation runs on the wrapped env, so its
+    returns are the env's own rewards."""
+    from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLConfig
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.data.demo import (
+        demo_obs_stats, load_demos_npz, minmax_demos, scale_demos,
+        subsample_trajs, wrap_absorbing_demos,
+    )
+    from ilswiss_tpu_torch.envs.wrappers import (
+        AbsorbingEnv, MinmaxEnv, ScaledEnv,
+    )
+
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, "adv_irl")
+    p = _alg(variant, "adv_irl_params")
+    # the reference nests the loop schedule inside adv_irl_params
+    # (exp_specs/gail/*.yaml): accept either layout
+    for k, v in p.items():
+        if not isinstance(v, dict):
+            rl.setdefault(k, v)
+    _route_host(variant, env_name)
+    wrap_absorbing = bool(p.get("wrap_absorbing", False))
+
+    demos = load_demos_npz(_resolve_demo_path(variant), device=device)
+    if variant.get("traj_num"):
+        demos = subsample_trajs(demos, int(variant["traj_num"]))
+    env = make(env_name, device=device, **env_kwargs)
+    if bool(variant.get("scale_env_with_demo_stats", False)):
+        stats = demo_obs_stats(demos)
+        demos = scale_demos(demos, stats["obs_mean"], stats["obs_std"])
+        env = ScaledEnv(env, obs_mean=stats["obs_mean"],
+                        obs_std=stats["obs_std"])
+    elif bool(variant.get("minmax_env_with_demo_stats", False)):
+        stats = demo_obs_stats(demos)
+        demos = minmax_demos(demos, stats["obs_min"], stats["obs_max"])
+        env = MinmaxEnv(env, stats["obs_min"], stats["obs_max"])
+    if wrap_absorbing:
+        demos = wrap_absorbing_demos(demos)
+        env = AbsorbingEnv(env)
+    vec = VectorEnv(env, num_envs)
+    obs_size, action_size = env.observation_size, env.action_size
+    # one train call per loop iteration (num_envs env steps): the
+    # update-loop count is rescaled to keep the reference's updates per
+    # env step
+    update_loops = max(1, round(
+        num_envs * int(p.get("num_update_loops_per_train_call", 1))
+        / max(1, int(rl.get("num_steps_between_train_calls", 1000)))))
+
+    sp = _alg(variant, "sac_params")
+    mode = str(p.get("mode", "gail"))
+    q_lo, q_hi = _q_target_bounds(variant, mode, sp)
+    sac = SAC(
+        obs_size=obs_size,
+        action_size=action_size,
+        config=SACConfig(
+            discount=float(sp.get("discount", 0.99)),
+            reward_scale=float(sp.get("reward_scale", 2.0)),
+            soft_target_tau=float(sp.get("soft_target_tau", 5e-3)),
+            policy_lr=float(sp.get("policy_lr", 3e-4)),
+            qf_lr=float(sp.get("qf_lr", 3e-4)),
+            # the reference runs all of GAIL-SAC's Adams at the spec's
+            # beta_1 (sac_alpha.py:60-76)
+            beta_1=float(sp.get("beta_1", 0.9)),
+            policy_mean_reg_weight=float(
+                sp.get("policy_mean_reg_weight", 1e-3)),
+            policy_std_reg_weight=float(
+                sp.get("policy_std_reg_weight", 1e-3)),
+            # the reference's SoftActorCritic starts at alpha 0.2
+            # (sac_alpha.py:32)
+            init_alpha=float(sp.get("alpha", 0.2)),
+            # the JAX package's guard against the alpha ratchet of
+            # nonstationary adversarial rewards
+            max_alpha=float(sp.get("max_alpha", 2.0)),
+            q_target_min=(float(sp["q_target_min"])
+                          if "q_target_min" in sp else q_lo),
+            q_target_max=(float(sp["q_target_max"])
+                          if "q_target_max" in sp else q_hi),
+        ),
+        net_size=int(variant.get("policy_net_size", 256)),
+        num_hidden_layers=int(variant.get("policy_num_hidden_layers", 2)),
+        device=device,
+    )
+    algo = AdvIRL(
+        obs_size, action_size, sac, demos,
+        AdvIRLConfig(
+            mode=mode,
+            state_only=bool(p.get("state_only", False)),
+            disc_optim_batch_size=int(p.get("disc_optim_batch_size", 1024)),
+            policy_optim_batch_size=int(
+                p.get("policy_optim_batch_size", 1024)),
+            policy_optim_batch_size_from_expert=int(
+                p.get("policy_optim_batch_size_from_expert", 0)),
+            num_update_loops_per_train_call=update_loops,
+            num_disc_updates_per_loop_iter=int(
+                p.get("num_disc_updates_per_loop_iter", 1)),
+            num_policy_updates_per_loop_iter=int(
+                p.get("num_policy_updates_per_loop_iter", 1)),
+            disc_lr=float(p.get("disc_lr", 3e-4)),
+            disc_momentum=float(p.get("disc_momentum", 0.9)),
+            use_grad_pen=bool(p.get("use_grad_pen", True)),
+            grad_pen_weight=float(p.get("grad_pen_weight", 10.0)),
+            rew_clip_min=p.get("rew_clip_min"),
+            rew_clip_max=p.get("rew_clip_max"),
+            reward_norm=bool(p.get("reward_norm", False)),
+            disc_num_blocks=int(variant.get("disc_num_blocks", 2)),
+            disc_hid_dim=int(variant.get("disc_hid_dim", 128)),
+            disc_hid_act=str(variant.get("disc_hid_act", "tanh")),
+            disc_use_bn=bool(variant.get("disc_use_bn", False)),
+            disc_clamp_magnitude=float(
+                variant.get("disc_clamp_magnitude", 10.0)),
+            disc_type=str(variant.get("disc_type", "mlp")),
+        ),
+    )
+    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+
+
 def run_eval_policy(variant: Dict[str, Any], device=None):
     """Standalone policy evaluation from a checkpoint (reference
     run_scripts/evaluate_policy.py + exp_specs/eval_policy.yaml):
@@ -372,6 +538,8 @@ def _unported_run(name: str, item: str) -> Callable:
 EXPERIMENTS: Dict[str, Callable] = {
     "sac": run_sac,
     "eval_policy": run_eval_policy,
+    "adv_irl": run_adv_irl,
+    "gail": run_adv_irl,
     **{name: _unported_run(name, item) for name, item in (
         ("sac_vmap_seeds", "2.10"),
         ("sac_v", "2.1"),
@@ -383,8 +551,6 @@ EXPERIMENTS: Dict[str, Callable] = {
         ("bc", "2.6"),
         ("dagger", "2.6"),
         ("render_policy", "2.10"),
-        ("adv_irl", "2.2"),
-        ("gail", "2.2"),
         ("sac_ae", "2.7"),
         ("sac_rad", "2.7"),
         ("sac_curl", "2.7"),

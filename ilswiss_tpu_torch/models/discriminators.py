@@ -1,0 +1,140 @@
+"""Adversarial-IL discriminators (counterpart:
+ilswiss_tpu/models/discriminators.py; `resolve_act` and `MLPDisc`).
+
+`MLPDisc` is the reference architecture (simple_disc_models.py:8-48):
+Linear -> [BatchNorm] -> act blocks, then a scalar logit clamped to
++-clamp_magnitude.  Layers keep the flax names (`dense_i`, `bn_i`,
+`logit`) so utils/convert.py maps them one to one.  Its BatchNorm is the
+port's own `BatchNorm` with flax's semantics, not `torch.nn.BatchNorm1d`,
+which updates its running variance with the unbiased batch variance and
+momentum 0.1 and so drifts from the JAX discriminator after one update.
+`CNNDisc` comes with ROADMAP.md section 1 item 2.7; the JAX package's
+`ResNetAIRLDisc` has no caller there and is listed under item 2.10.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+# flax's `lecun_normal`: a normal truncated at +-2 standard deviations,
+# rescaled by this constant (the truncated unit normal's std) so the
+# kernel's variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def resolve_act(hid_act: str):
+    """relu or tanh, as the reference (simple_disc_models.py:14-19);
+    another name raises."""
+    if hid_act == "relu":
+        return torch.relu
+    if hid_act == "tanh":
+        return torch.tanh
+    raise NotImplementedError(f"unknown disc activation: {hid_act!r}")
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm` over the batch axis of [B, F]: momentum 0.99,
+    epsilon 1e-5, learned `scale` (ones) and `bias` (zeros), running
+    `mean` (zeros) and `var` (ones).
+
+    In train mode it normalizes by the batch's own statistics, the mean
+    and the BIASED variance max(0, E[x^2] - E[x]^2) (flax's fast variance),
+    and the gradient flows through them; in eval mode by the running
+    averages.  The forward never updates the running averages itself:
+    `update(mean, var)` does, momentum * running + (1 - momentum) * batch,
+    so the caller decides which forward's statistics count (the JAX
+    `_disc_update` keeps those of its main forward only)."""
+
+    momentum = 0.99
+    epsilon = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool,
+                stats: List[Tuple[torch.Tensor, torch.Tensor]] | None = None
+                ) -> torch.Tensor:
+        if train:
+            mean = torch.mean(x, dim=0)
+            var = torch.clamp_min(torch.mean(x * x, dim=0) - mean * mean,
+                                  0.0)
+            if stats is not None:
+                stats.append((mean.detach(), var.detach()))
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean) * mul + self.bias
+
+    @torch.no_grad()
+    def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1 - m) * mean)
+        self.var.copy_(m * self.var + (1 - m) * var)
+
+
+def _lecun_normal_(layer: nn.Linear, generator: torch.Generator) -> None:
+    """flax Dense's default init: kernel lecun_normal, bias zeros."""
+    std = (1.0 / layer.in_features) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        layer.bias.zero_()
+
+
+class MLPDisc(nn.Module):
+    """`num_layer_blocks` x (Linear -> [BatchNorm] -> act), then a logit
+    clamped to +-clamp_magnitude; [B, input_size] -> [B, 1]."""
+
+    def __init__(self, input_size: int, generator: torch.Generator,
+                 num_layer_blocks: int = 2, hid_dim: int = 100,
+                 hid_act: str = "relu", use_bn: bool = True,
+                 clamp_magnitude: float = 10.0):
+        super().__init__()
+        self.act = resolve_act(hid_act)
+        self.num_layer_blocks = num_layer_blocks
+        self.use_bn = use_bn
+        self.clamp_magnitude = clamp_magnitude
+        width = input_size
+        for i in range(num_layer_blocks):
+            layer = nn.Linear(width, hid_dim)
+            _lecun_normal_(layer, generator)
+            self.add_module(f"dense_{i}", layer)
+            if use_bn:
+                self.add_module(f"bn_{i}", BatchNorm(hid_dim))
+            width = hid_dim
+        self.logit = nn.Linear(width, 1)
+        _lecun_normal_(self.logit, generator)
+
+    def batch_norms(self) -> List[BatchNorm]:
+        if not self.use_bn:
+            return []
+        return [getattr(self, f"bn_{i}") for i in range(self.num_layer_blocks)]
+
+    def forward(self, x: torch.Tensor, train: bool = True,
+                stats: List[Tuple[torch.Tensor, torch.Tensor]] | None = None
+                ) -> torch.Tensor:
+        """Logits [B, 1].  `train` selects the BatchNorm statistics (the
+        batch's, or the running averages); where `stats` is a list, each
+        BatchNorm appends its batch (mean, var) to it, for
+        `update_batch_stats`."""
+        for i in range(self.num_layer_blocks):
+            x = getattr(self, f"dense_{i}")(x)
+            if self.use_bn:
+                x = getattr(self, f"bn_{i}")(x, train, stats)
+            x = self.act(x)
+        x = self.logit(x)
+        return torch.clamp(x, -self.clamp_magnitude, self.clamp_magnitude)
+
+    def update_batch_stats(
+            self, stats: List[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """Move each BatchNorm's running averages toward the statistics a
+        train-mode forward collected."""
+        for bn, (mean, var) in zip(self.batch_norms(), stats):
+            bn.update(mean, var)

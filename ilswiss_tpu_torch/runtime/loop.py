@@ -5,10 +5,12 @@
 The JAX package scans this inside one jitted program; here it is a Python
 loop of eager PyTorch calls, with the metrics kept on the device until an
 epoch ends.  K = `grad_steps_per_iter` defaults to the number of envs
-(one gradient step per env step).  An algorithm with `use_fused_chain`
-set takes the K steps as one `train_chain` call (kernel K2); the JAX loop
-also requires that no mesh axis is set, which has no counterpart here
-until data parallelism is ported.
+(one gradient step per env step).  An algorithm with `train_call`
+(AdvIRL) takes the iteration's updates itself, sampling the ring and
+drawing from the runner's noise (JAX loop.py:134-149).  An algorithm with
+`use_fused_chain` set takes the K steps as one `train_chain` call (kernel
+K2); the JAX loop also requires that no mesh axis is set, which has no
+counterpart here until data parallelism is ported.
 
 Every random draw of an iteration comes from one `noise` object, held by
 the RunnerState as JAX holds its key.  `Noise` draws from a
@@ -84,6 +86,11 @@ class Noise:
         """(eps_next, eps_new): N(0, 1) noise of one gradient step."""
         return self._normal(shape), self._normal(shape)
 
+    def interpolation(self, n: int) -> torch.Tensor:
+        """Uniforms in [0, 1), [n, 1]: the per-row weights of a gradient
+        penalty's interpolates (algorithms/adv_irl.py)."""
+        return self._uniform((n, 1), 0.0, 1.0)
+
 
 @dataclass
 class RunnerState:
@@ -96,8 +103,10 @@ class RunnerState:
 
 class OffPolicyLoop:
     """Off-policy runtime for an algorithm with `init(seed)`,
-    `act(state, obs, eps)`, `train_step(state, batch, eps_next, eps_new)`
-    and, where `use_fused_chain` is set, `train_chain(state, replay, noise,
+    `act(state, obs, eps)` and either `train_call(state, replay, noise)`
+    (AdvIRL: it takes an iteration's updates and draws itself), or
+    `train_step(state, batch, eps_next, eps_new)` and, where
+    `use_fused_chain` is set, `train_chain(state, replay, noise,
     batch_size, num_steps)` (SAC)."""
 
     def __init__(self, vec_env: VectorEnv, algo, config: OffPolicyConfig):
@@ -151,6 +160,12 @@ class OffPolicyLoop:
                     ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
         runner = self._collect_iter(runner, random_actions=False)
         cfg = self.config
+        if hasattr(self.algo, "train_call"):
+            # an algorithm that owns its update schedule (AdvIRL's nested
+            # discriminator / policy loop) samples the ring itself
+            runner.algo_state, metrics = self.algo.train_call(
+                runner.algo_state, runner.replay, runner.noise)
+            return runner, metrics
         if getattr(self.algo, "use_fused_chain", False):
             runner.algo_state, metrics = self.algo.train_chain(
                 runner.algo_state, runner.replay, runner.noise,

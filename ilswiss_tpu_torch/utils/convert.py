@@ -8,10 +8,15 @@ maps:
 
   * a flax Dense kernel is [in, out]; `nn.Linear.weight` is [out, in];
   * the twin critics are stacked [2, in, out] on both sides (`TwinQ`);
-  * `optax.flatten` keeps each optimizer's Adam moments as ONE ravelled
-    vector in `ravel_pytree` order: dict keys sorted, so `bias` before
-    `kernel` and the policy layers `hidden_0, hidden_1, log_std, mean`;
-    a kernel is ravelled in its flax [in, out] layout.
+  * `optax.flatten` keeps each of SAC's optimizers' Adam moments as ONE
+    ravelled vector in `ravel_pytree` order: dict keys sorted, so `bias`
+    before `kernel` and the policy layers `hidden_0, hidden_1, log_std,
+    mean`; a kernel is ravelled in its flax [in, out] layout;
+  * the AdvIRL discriminator's Adam (plain `optax.adam`) keeps its moments
+    as trees shaped like its params; its BatchNorm's running averages are
+    the `batch_stats` collection;
+  * a JAX demo buffer of stride 1 has `env_ep=None`, the port's a zero
+    vector of length 1 (data/demo.py).
 
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
@@ -24,9 +29,11 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLState
 from ilswiss_tpu_torch.algorithms.sac import SAC, Adam, SACState, TwinQ
 from ilswiss_tpu_torch.data.replay import ReplayState
 from ilswiss_tpu_torch.envs.base import EnvState
+from ilswiss_tpu_torch.models.discriminators import MLPDisc
 from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
 
 # (port tensor, flax path, transposed) in ravel_pytree order
@@ -177,12 +184,14 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
 
 
 def replay_from_jax(jreplay, device) -> ReplayState:
+    env_ep = (np.zeros((1,), np.int32) if jreplay.env_ep is None
+              else jreplay.env_ep)
     return ReplayState(
         data={k: _tensor(v, device) for k, v in jreplay.data.items()},
         ep_id=_tensor(jreplay.ep_id, device, torch.int32),
         ptr=int(np.asarray(jreplay.ptr)),
         size=int(np.asarray(jreplay.size)),
-        env_ep=_tensor(jreplay.env_ep, device, torch.int32),
+        env_ep=_tensor(env_ep, device, torch.int32),
     )
 
 
@@ -190,6 +199,89 @@ def replay_to_numpy(state: ReplayState) -> Dict[str, Any]:
     return {"data": {k: v.cpu().numpy() for k, v in state.data.items()},
             "ep_id": state.ep_id.cpu().numpy(), "ptr": state.ptr,
             "size": state.size, "env_ep": state.env_ep.cpu().numpy()}
+
+
+def _disc_leaves(disc: MLPDisc) -> List[_Leaf]:
+    """Every parameter, at its path in the flax params tree."""
+    out = []
+    for i in range(disc.num_layer_blocks):
+        dense = getattr(disc, f"dense_{i}")
+        out.append((dense.weight, (f"dense_{i}", "kernel"), True))
+        out.append((dense.bias, (f"dense_{i}", "bias"), False))
+    for i, bn in enumerate(disc.batch_norms()):
+        out.append((bn.scale, (f"bn_{i}", "scale"), False))
+        out.append((bn.bias, (f"bn_{i}", "bias"), False))
+    out.append((disc.logit.weight, ("logit", "kernel"), True))
+    out.append((disc.logit.bias, ("logit", "bias"), False))
+    return out
+
+
+def _bn_stat_leaves(disc: MLPDisc) -> List[_Leaf]:
+    return [(getattr(bn, s), (f"bn_{i}", s), False)
+            for i, bn in enumerate(disc.batch_norms())
+            for s in ("mean", "var")]
+
+
+def disc_from_jax(disc: MLPDisc, variables) -> None:
+    """Load a flax MLPDisc's variables ({"params"[, "batch_stats"]})
+    into `disc`, in place."""
+    _load_leaves(_disc_leaves(disc), variables["params"])
+    if disc.use_bn:
+        _load_leaves(_bn_stat_leaves(disc), variables["batch_stats"])
+
+
+def disc_to_numpy(disc: MLPDisc) -> Dict[str, Any]:
+    out = {"params": _dump_leaves(_disc_leaves(disc))}
+    if disc.use_bn:
+        out["batch_stats"] = _dump_leaves(_bn_stat_leaves(disc))
+    return out
+
+
+def adv_irl_state_from_jax(algo: AdvIRL, jstate) -> AdvIRLState:
+    """An AdvIRLState on the inner trainer's device holding the JAX
+    AdvIRLState's values: the discriminator's parameters and running
+    averages, its Adam's moments and count, the inner SACState, the
+    expert buffer and the reward statistics."""
+    state = algo.init(0)
+    leaves = _disc_leaves(state.disc)
+    disc_from_jax(state.disc, jstate.disc_params)
+    adam = jstate.disc_opt[0]
+    opt = state.disc_opt
+    opt.count = int(np.asarray(adam.count))
+    with torch.no_grad():
+        for tree, moments in ((adam.mu, opt.mu), (adam.nu, opt.nu)):
+            for (t, path, tr), m in zip(leaves,
+                                        _moments_of(opt, leaves, moments)):
+                m.copy_(_from_flax(_get(tree, path), m, tr))
+    state.policy = sac_state_from_jax(algo.policy_trainer, jstate.policy)
+    state.expert = replay_from_jax(jstate.expert, algo.device)
+    if jstate.rew_stats is not None:
+        state.rew_stats = tuple(_tensor(x, algo.device, torch.float32)
+                                for x in jstate.rew_stats)
+    return state
+
+
+def adv_irl_state_to_numpy(state: AdvIRLState) -> Dict[str, Any]:
+    """The port's AdvIRLState in the JAX layouts: `disc_params` as flax
+    variables, `disc_opt` {"count", "mu", "nu"} with moment trees shaped
+    like the params, the inner state as `sac_state_to_numpy`, the expert
+    buffer as `replay_to_numpy`, and `rew_stats`."""
+    leaves = _disc_leaves(state.disc)
+    opt = state.disc_opt
+
+    def tree(moments):
+        return _dump_leaves([(m, path, tr) for (_, path, tr), m in zip(
+            leaves, _moments_of(opt, leaves, moments))])
+
+    return {
+        "disc_params": disc_to_numpy(state.disc),
+        "disc_opt": {"count": opt.count, "mu": tree(opt.mu),
+                     "nu": tree(opt.nu)},
+        "policy": sac_state_to_numpy(state.policy),
+        "expert": replay_to_numpy(state.expert),
+        "rew_stats": (None if state.rew_stats is None else
+                      tuple(x.cpu().numpy() for x in state.rew_stats)),
+    }
 
 
 def batches_from_numpy(batches: Dict[str, Any], device

@@ -206,8 +206,8 @@ def test_routing_raises_naming_the_roadmap_item(tmp_path):
     assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
     with pytest.raises(NotImplementedError, match="item 2.1"):
         pexp.EXPERIMENTS["td3"](_variant(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.2"):
-        pexp.EXPERIMENTS["gail"](_variant(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.3"):
+        pexp.EXPERIMENTS["ppo"](_variant(tmp_path), device="cpu")
     if not torch.cuda.is_available():      # the default device is the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(_variant(tmp_path))
