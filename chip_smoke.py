@@ -117,7 +117,29 @@ exits non-zero on any failure; no phase catches its own error.
      them, gail2 rewards <= 0; K1 at B = 8 and 32 on run A's end states
      against its plain version (phase 3's check); the iteration's split
      (K1, a discriminator step, a policy step), the snapshot's size, save
-     and load time.
+     and load time;
+ 11. TD3 through the launcher: exp_specs/td3/td3_hopper.yaml copied under
+     build/chip_smoke_td3/ with only num_epochs (102 -> 2) and
+     num_steps_per_epoch (10000 -> 400) cut, through
+     `EXPERIMENTS["td3"]`: 8 envs, 256 x 2, batch 256, K = 8, a 1M ring,
+     5000 warmup steps, the 32-env evaluator.  Run A: 2 epochs; run B: 1
+     epoch, then a full resume.  Launch counts exact (K1 2725 / 1675 /
+     1050; K2 = K3 = K4 = 0), B's end state equal to A's bit for bit (the
+     three targets, both critics' and the policy's Adams, n_train_steps,
+     the ring, the noise generator) and its progress.csv rows but for the
+     wall clocks, every metric finite; K1 at B = 8 and 32 on run A's end
+     states against its plain version; one TD3 step's wall ms (host clock,
+     synchronized, 20 steps), device operations and device ms
+     (torch.profiler), the iteration's split (K1, 8 steps, the rest), the
+     snapshot's size, save and load time, the spec's estimated wall time;
+ 12. the other four trainers through the launcher, cut in num_epochs
+     only: exp_specs/dqn/dqn_cartpole.yaml (2 epochs, and 1 plus a full
+     resume, bit-equal with epsilon's counters),
+     exp_specs/sac/sac_cartpole_d.yaml (1 epoch; the trainer and debug.log
+     must hold the spec's alpha 0.05 and discount 0.95), and DDPG and
+     SAC-V on phase 11's copy with td3_params' values under ddpg_params /
+     sac_params (1 epoch; K1 exactly 1675 each); cartpole launches no
+     kernel; for each, a step's wall ms, device operations and device ms.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -125,6 +147,7 @@ power limit, and as its last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -317,6 +340,75 @@ def check_launches(what: str, runs) -> None:
         if got != exp:
             fail(f"{what} run {name}: launches {got}, expected {exp}")
         print(f"{what} run {name}: launches {json.dumps(got)}")
+
+
+@contextlib.contextmanager
+def kept_algos():
+    """Inside: every trainer a launcher hands its `_run_off_policy` is
+    appended to the yielded list (for timings after the run)."""
+    from ilswiss_tpu_torch.launchers import experiments as pexp
+
+    algos = []
+    run_off_policy = pexp._run_off_policy
+
+    def keep(algo, *args, **kwargs):
+        algos.append(algo)
+        return run_off_policy(algo, *args, **kwargs)
+
+    pexp._run_off_policy = keep
+    try:
+        yield algos
+    finally:
+        pexp._run_off_policy = run_off_policy
+
+
+def step_costs(fn, reps: int = 20, warmup: int = 3, traced: int = 3
+               ) -> tuple:
+    """One call of `fn` (an update step): its wall ms on the host clock,
+    synchronized, over `reps` calls after `warmup` unmeasured; then its
+    device operations (kernels, copies) and their summed device ms, from a
+    torch.profiler trace of `traced` calls.  Returns (wall ms, operations,
+    device ms) per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (wall, len(ops) / traced,
+            sum(e.device_time for e in ops) / traced / 1e3)
+
+
+def cut_spec(spec_path: str, out: Path, cut: dict) -> tuple:
+    """A copy of `spec_path` under `out` with `cut` set in its
+    rl_alg_params, and its one variant.  Returns (variant, the spec's
+    own rl_alg_params)."""
+    import yaml
+
+    from ilswiss_tpu_torch.launchers.variant import build_variants
+
+    with open(ROOT / spec_path) as f:
+        spec = yaml.safe_load(f)
+    full = dict(spec["constants"]["rl_alg_params"])
+    spec["constants"]["rl_alg_params"].update(cut)
+    path = out / Path(spec_path).name
+    with open(path, "w") as f:
+        yaml.safe_dump(spec, f)
+    with open(path) as f:
+        (variant,) = build_variants(yaml.safe_load(f))
+    return variant, full
 
 
 def progress_rows(log_dir) -> list:
@@ -599,12 +691,6 @@ def gail_phase(card: str, counters: dict, k1_check) -> dict:
     import os
     import shutil
 
-    import torch
-    import yaml
-    from torch.profiler import ProfilerActivity, profile
-
-    from ilswiss_tpu_torch.launchers import experiments as pexp
-    from ilswiss_tpu_torch.launchers.variant import build_variants
     from ilswiss_tpu_torch.ops.fused_sac import METRIC_NAMES
     from ilswiss_tpu_torch.runtime.checkpoint import to_tree
     from ilswiss_tpu_torch.runtime.loop import Noise
@@ -615,31 +701,17 @@ def gail_phase(card: str, counters: dict, k1_check) -> dict:
     out = ROOT / "build" / "chip_smoke_gail"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    with open(ROOT / GAIL_SPEC) as f:
-        spec = yaml.safe_load(f)
-    full = dict(spec["constants"]["rl_alg_params"])
-    spec["constants"]["rl_alg_params"].update(GAIL_CUT)
-    cut = out / "gail_hopper.yaml"
-    with open(cut, "w") as f:
-        yaml.safe_dump(spec, f)
-    with open(cut) as f:
-        (variant,) = build_variants(yaml.safe_load(f))
+    variant, full = cut_spec(GAIL_SPEC, out, GAIL_CUT)
 
     # the trainer the launcher builds, kept for the timings below
     algos = []
-    run_off_policy = pexp._run_off_policy
-
-    def keep_algo(algo, *args, **kwargs):
-        algos.append(algo)
-        return run_off_policy(algo, *args, **kwargs)
 
     def run(name, num_epochs, **extra):
-        pexp._run_off_policy = keep_algo
-        try:
-            return run_spec("adv_irl", variant, out / name, counters,
-                            num_epochs, **extra)
-        finally:
-            pexp._run_off_policy = run_off_policy
+        with kept_algos() as kept:
+            result = run_spec("adv_irl", variant, out / name, counters,
+                              num_epochs, **extra)
+        algos.extend(kept)
+        return result
 
     rl = variant["rl_alg_params"]
     n = variant["env_specs"]["env_num"]
@@ -710,31 +782,10 @@ def gail_phase(card: str, counters: dict, k1_check) -> dict:
     # device time, from a torch.profiler trace of 3 steps
     algo = algos[-1]
     noise = Noise(123, a.env_state.obs.device)
-
-    def step_ms(fn, reps=20, warmup=3):
-        for _ in range(warmup):
-            fn(b.algo_state, b.replay, noise)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(b.algo_state, b.replay, noise)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / reps
-
-    def step_device(fn, reps=3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn(b.algo_state, b.replay, noise)
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        return len(ops) / reps, sum(e.device_time for e in ops) / reps / 1e3
-
-    disc_ms = step_ms(algo._disc_update)
-    policy_ms = step_ms(algo._policy_update)
-    disc_ops, disc_dev_ms = step_device(algo._disc_update)
-    policy_ops, policy_dev_ms = step_device(algo._policy_update)
+    disc_ms, disc_ops, disc_dev_ms = step_costs(
+        lambda: algo._disc_update(b.algo_state, b.replay, noise))
+    policy_ms, policy_ops, policy_dev_ms = step_costs(
+        lambda: algo._policy_update(b.algo_state, b.replay, noise))
     print(f"GAIL update steps: a discriminator step {disc_ops:.0f} device "
           f"operations, {disc_dev_ms:.3f} ms of device time in "
           f"{disc_ms:.3f} ms of wall time; a policy step {policy_ops:.0f}, "
@@ -770,6 +821,312 @@ def gail_phase(card: str, counters: dict, k1_check) -> dict:
             "device_busy_share": busy / it_ms,
             "snapshot_mib": size, "save_s": save_s, "load_s": load_s,
             "full_spec_hours": full_h, "epochs": epochs}
+
+
+# Phase 11: TD3 through the port's launcher, cut in length only
+TD3_SPEC = "exp_specs/td3/td3_hopper.yaml"
+TD3_CUT = {"num_epochs": 2, "num_steps_per_epoch": 400}
+TD3_METRICS = ["qf1_loss", "qf2_loss", "policy_loss", "q_target_mean"]
+EVAL_COLUMNS = ["AverageReturn", "MaxReturn", "MinReturn", "StdReturn",
+                "AvgPathLength", "TotalEnvSteps", "TrainTime", "EvalTime",
+                "EnvStepsPerSec"]
+
+
+def k1_want(variant: dict, epochs: int, warmup: bool, planar: bool) -> dict:
+    """The launch counts of `epochs` epochs of a launcher run of `variant`
+    on an eager learner: K1 once per control step of warmup
+    (min_steps_before_training // env_num iterations), training
+    (num_steps_per_epoch // env_num iterations an epoch) and evaluation
+    (max_path_length steps an epoch) on a planar env, never on an analytic
+    one; K2, K3 and K4 never (only SAC sets the fused chain and fused
+    acting, and hopper is planar)."""
+    rl = variant["rl_alg_params"]
+    n = variant["env_specs"]["env_num"]
+    steps = ((rl["min_steps_before_training"] // n if warmup else 0)
+             + epochs * (rl["num_steps_per_epoch"] // n
+                         + rl["max_path_length"]))
+    return {"planar_control_step": steps if planar else 0,
+            "planar_forward": 0, "fused_sac_chain": 0,
+            "fused_policy_forward": 0, "pgs_solve": 0}
+
+
+def env_steps(variant: dict, epochs: int) -> int:
+    """TotalEnvSteps after warmup and `epochs` epochs: whole iterations of
+    env_num steps each."""
+    rl = variant["rl_alg_params"]
+    n = variant["env_specs"]["env_num"]
+    return n * (rl["min_steps_before_training"] // n
+                + epochs * (rl["num_steps_per_epoch"] // n))
+
+
+def straight_and_resumed(what: str, name: str, variant: dict, out: Path,
+                         counters: dict, card: str, planar: bool,
+                         metrics: list) -> dict:
+    """Run A: 2 epochs of `variant` through `EXPERIMENTS[name]`; run B: 1
+    epoch, then a full resume to 2.  Fails unless the launch counts are
+    `k1_want`'s, B's end state equals A's bit for bit, and progress.csv
+    holds the `metrics` and every value finite, TotalEnvSteps as the
+    schedule gives them, and B's rows equal to A's but for the wall
+    clocks.  Returns the runners, launches, the trainer, the epochs' rows
+    and the calls' wall seconds."""
+    from ilswiss_tpu_torch.runtime.checkpoint import to_tree
+    from ilswiss_tpu_torch.testing import tree_diff
+
+    with kept_algos() as algos:
+        a, a_launches, a_s = run_spec(name, variant, out / "a", counters, 2)
+        b1, b1_launches, b1_s = run_spec(name, variant, out / "b",
+                                         counters, 1)
+        b, b_launches, b_s = run_spec(name, variant, out / "b", counters, 2,
+                                      load_params=str(out / "b"))
+    check_launches(what, (
+        ("A (2 epochs)", a_launches, k1_want(variant, 2, True, planar)),
+        ("B (1 epoch)", b1_launches, k1_want(variant, 1, True, planar)),
+        ("B resumed to 2 epochs", b_launches,
+         k1_want(variant, 1, False, planar))))
+    print(f"{what} runs: A {a_s:.1f} s, B {b1_s:.1f} s + resume {b_s:.1f} s "
+          f"(wall time of each call), on {card}")
+    a_tree = to_tree(a)
+    bad = tree_diff(a_tree, to_tree(b))
+    if bad:
+        fail(f"the resumed {what} run B differs from run A in {bad[:10]}")
+    print(f"{what} resume: B's end state equals A's bit for bit (every "
+          f"network, target, Adam's moments and count, the step counters, "
+          f"the ring, the env state, the noise generator)")
+    a_rows, b_rows = progress_rows(out / "a"), progress_rows(out / "b")
+    check_progress(what, a_rows, b_rows,
+                   [f"trainer/{k}" for k in metrics] + EVAL_COLUMNS,
+                   [float(env_steps(variant, e)) for e in (1, 2)])
+    rows = [{k: float(r[k]) for k in ["TrainTime", "EvalTime",
+                                      "EnvStepsPerSec", "AverageReturn"]
+             + [f"trainer/{m}" for m in metrics]}
+            for r in a_rows + b_rows]
+    for (run_name, ep), e in zip((("A", 0), ("A", 1), ("B", 0), ("B", 1)),
+                                 rows):
+        print(f"{what} run {run_name} epoch {ep}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e.items()) + f", on {card}")
+    return {"a": a, "b": b, "b1": b1, "a_tree": a_tree,
+            "launches": a_launches, "resumed_launches": b_launches,
+            "algo": algos[-1], "rows": rows, "seconds": [a_s, b1_s, b_s]}
+
+
+def train_step_costs(algo, runner, batch_size: int, seed: int) -> tuple:
+    """`step_costs` of one gradient step as the loop takes it: a replay
+    sample and `train_step` with the trainer's own draws, on `runner`'s
+    end state and ring (the runner is not read again)."""
+    from ilswiss_tpu_torch.data.replay import replay_sample
+    from ilswiss_tpu_torch.runtime.loop import Noise
+
+    noise = Noise(seed, runner.env_state.obs.device)
+
+    def step():
+        batch = replay_sample(runner.replay, noise.replay(batch_size))
+        algo.train_step(runner.algo_state, batch,
+                        *algo.train_noise(noise, batch_size))
+    return step_costs(step)
+
+
+def td3_phase(card: str, counters: dict, k1_check) -> dict:
+    """Phase 11: a copy of TD3_SPEC under build/chip_smoke_td3/ with only
+    TD3_CUT changed (num_epochs 102 -> 2, num_steps_per_epoch 10000 ->
+    400: 50 iterations of 8 envs an epoch, K = 8), through
+    `build_variants` and `EXPERIMENTS["td3"]` on the card: TD3 256 x 2 on
+    hopper, batch 256, a 1M ring, 5000 warmup steps, the 32-env evaluator.
+    Run A: 2 epochs; run B: 1 epoch, then a full resume
+    (`straight_and_resumed`: K1 2725 / 1675 / 1050, K2 = K3 = K4 = 0, B
+    bit-equal to A).  K1 at B = 8 and 32 on run A's end states against its
+    plain version (phase 3's check).  Times one TD3 step (wall, device
+    operations and device time), splits the iteration into K1, 8 steps
+    and the rest, times a full snapshot's save and load, and estimates the
+    spec's wall time at full length."""
+    import shutil
+
+    out = ROOT / "build" / "chip_smoke_td3"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    variant, full = cut_spec(TD3_SPEC, out, TD3_CUT)
+    want = [k1_want(variant, e, w, True)["planar_control_step"]
+            for e, w in ((2, True), (1, True), (1, False))]
+    if want != [2725, 1675, 1050]:
+        fail(f"TD3: the spec's launch counts are not phase 11's: {want}")
+    r = straight_and_resumed("TD3", "td3", variant, out, counters, card,
+                             True, TD3_METRICS)
+    a, algo = r["a"], r["algo"]
+    rl = variant["rl_alg_params"]
+    n = variant["env_specs"]["env_num"]
+    size, save_s, load_s = snapshot_times("TD3", out / "snapshot", a,
+                                          r["b1"], r["a_tree"])
+    print(f"TD3 full snapshot: {size:.1f} MiB on disk, save {save_s:.3f} s, "
+          f"load {load_s:.3f} s, on {card}")
+    k1_ms, k1_err = k1_on_end_states("TD3", a, n,
+                                     counters["planar_control_step"],
+                                     k1_check, 13)
+    step_ms, step_ops, step_dev_ms = train_step_costs(
+        algo, r["b"], rl["batch_size"], 17)
+    iters = rl["num_steps_per_epoch"] // n
+    k = round(n * rl["num_train_steps_per_train_call"]
+              / rl["num_steps_between_train_calls"])
+    it_ms = 1e3 * sum(e["TrainTime"] for e in r["rows"]) / (
+        len(r["rows"]) * iters)
+    rest = it_ms - k1_ms[n] - k * step_ms
+    eval_s = sum(e["EvalTime"] for e in r["rows"]) / len(r["rows"])
+    print(f"TD3 step (batch {rl['batch_size']}, 256 x 2): {step_ms:.3f} ms "
+          f"of wall time, {step_ops:.0f} device operations, "
+          f"{step_dev_ms:.3f} ms of device time; on {card}")
+    print(f"TD3 iteration: {it_ms:.3f} ms (mean over the 4 epochs) = K1 at "
+          f"B = {n} {k1_ms[n]:.4f} ms + {k} TD3 steps x {step_ms:.3f} ms + "
+          f"the rest {rest:.3f} ms (acting, the env's other work, the ring, "
+          f"the host); the device busy for about "
+          f"{(k1_ms[n] + k * step_dev_ms) / it_ms:.1%} of it (K1 and the "
+          f"steps' device time); K1 at B = {4 * n} (the evaluator): "
+          f"{k1_ms[4 * n]:.4f} ms of a "
+          f"{1e3 * eval_s / rl['max_path_length']:.3f} ms control step; "
+          f"on {card}")
+    full_iters = full["num_steps_per_epoch"] // n
+    full_h = (it_ms * 1e-3 * full_iters + eval_s) * full["num_epochs"] / 3600
+    print(f"TD3 spec at full length ({full['num_epochs']} epochs of "
+          f"{full_iters} iterations and an evaluation each), at these "
+          f"rates: {full_h:.2f} h, on {card}")
+    return {"launches": r["launches"], "resumed_launches":
+            r["resumed_launches"], "k1_ms": k1_ms, "k1_err": k1_err,
+            "step_ms": step_ms, "step_ops": step_ops,
+            "step_device_ms": step_dev_ms, "iteration_ms": it_ms,
+            "rest_ms": rest, "snapshot_mib": size, "save_s": save_s,
+            "load_s": load_s, "full_spec_hours": full_h,
+            "epochs": r["rows"], "seconds": r["seconds"]}
+
+
+# Phase 12: the other four trainers through the launcher, at their specs'
+# widths, cut in num_epochs only (DDPG and SAC-V on TD3_SPEC's cut copy)
+DQN_SPEC = "exp_specs/dqn/dqn_cartpole.yaml"
+DISCRETE_SAC_SPEC = "exp_specs/sac/sac_cartpole_d.yaml"
+OTHER_METRICS = {
+    "dqn": ["qf_loss", "q_pred_mean", "epsilon"],
+    "discrete_sac": ["qf1_loss", "qf2_loss", "policy_loss"],
+    "ddpg": ["qf_loss", "policy_loss", "q_target_mean"],
+    "sac_v": ["qf1_loss", "qf2_loss", "vf_loss", "policy_loss",
+              "log_pi_mean"],
+}
+
+
+def one_epoch(what: str, name: str, variant: dict, out: Path,
+              counters: dict, card: str, planar: bool) -> dict:
+    """One epoch of `variant` through `EXPERIMENTS[name]`: launch counts
+    exact (`k1_want`), progress.csv's row finite with the trainer's
+    metrics and TotalEnvSteps as the schedule gives it."""
+    with kept_algos() as algos:
+        runner, launches, seconds = run_spec(name, variant, out, counters, 1)
+    check_launches(what, (("(1 epoch)", launches,
+                           k1_want(variant, 1, True, planar)),))
+    (row,) = progress_rows(out)
+    need = [f"trainer/{k}" for k in OTHER_METRICS[name]] + EVAL_COLUMNS
+    if not set(need) <= set(row) or not all(
+            math.isfinite(float(v)) for v in row.values()):
+        fail(f"{what}: progress.csv row {row}")
+    if float(row["TotalEnvSteps"]) != env_steps(variant, 1):
+        fail(f"{what}: TotalEnvSteps {row['TotalEnvSteps']}, expected "
+             f"{env_steps(variant, 1)}")
+    e = {k: float(row[k]) for k in need if k != "TotalEnvSteps"}
+    print(f"{what} epoch 0 ({seconds:.1f} s for the call): " + ", ".join(
+        f"{k} {v:.6g}" for k, v in e.items()) + f", on {card}")
+    return {"runner": runner, "launches": launches, "algo": algos[-1],
+            "row": e, "seconds": seconds}
+
+
+def other_trainers_phase(card: str, counters: dict) -> dict:
+    """Phase 12: DQN_SPEC (16 cartpole envs, 128 x 2, batch 128, K = 8,
+    250 iterations an epoch) run 2 epochs straight and 1 epoch plus a full
+    resume, bit-equal, carrying epsilon's counters; DISCRETE_SAC_SPEC (128
+    envs, 128 x 2, batch 128, K = 13, 78 iterations an epoch) for 1 epoch,
+    whose trainer must hold the spec's alpha 0.05 and discount 0.95 (the
+    block the JAX launcher does not read) and whose debug.log must say
+    so; DDPG and SAC-V through `EXPERIMENTS["ddpg"]` and
+    `EXPERIMENTS["sac_v"]` on TD3_SPEC's cut copy (phase 11's, 1 epoch of
+    400 steps) with td3_params' values that each trainer reads moved under
+    `ddpg_params` / `sac_params`: K1 exactly 1675 each.  CartPole paths
+    launch no kernel.  For each: one gradient step's wall ms, device
+    operations and device ms, TrainTime and EvalTime."""
+    import copy
+    import shutil
+
+    from ilswiss_tpu_torch.launchers.variant import build_variants
+    import yaml
+
+    out = ROOT / "build" / "chip_smoke_offpolicy"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    result = {}
+
+    def spec_variant(path):
+        with open(ROOT / path) as f:
+            (v,) = build_variants(yaml.safe_load(f))
+        return v
+
+    def costs(name, algo, runner, batch_size, seed):
+        ms, ops, dev_ms = train_step_costs(algo, runner, batch_size, seed)
+        print(f"{name} step (batch {batch_size}): {ms:.3f} ms of wall time, "
+              f"{ops:.0f} device operations, {dev_ms:.3f} ms of device "
+              f"time; on {card}")
+        return {"step_ms": ms, "step_ops": ops, "step_device_ms": dev_ms}
+
+    # DQN on cartpole: straight and resumed
+    dqn = spec_variant(DQN_SPEC)
+    r = straight_and_resumed("DQN", "dqn", dqn, out / "dqn", counters, card,
+                             False, OTHER_METRICS["dqn"])
+    rl = dqn["rl_alg_params"]
+    steps = 2 * rl["num_steps_per_epoch"]
+    state = r["a"].algo_state
+    if state.n_act_steps != steps or r["algo"].epsilon(state) != \
+            r["algo"].epsilon(r["b"].algo_state):
+        fail(f"DQN: epsilon counted {state.n_act_steps} env steps, "
+             f"expected {steps}")
+    print(f"DQN epsilon after 2 epochs: {r['algo'].epsilon(state):.6f} at "
+          f"{state.n_act_steps} env steps of training, "
+          f"{state.n_train_steps} gradient steps")
+    result["dqn"] = dict(costs("DQN", r["algo"], r["b"], rl["batch_size"],
+                               21), launches=r["launches"],
+                         resumed_launches=r["resumed_launches"],
+                         epochs=r["rows"], seconds=r["seconds"])
+
+    # discrete SAC on cartpole: 1 epoch, the spec's own parameters
+    dsac = spec_variant(DISCRETE_SAC_SPEC)
+    e = one_epoch("discrete SAC", "discrete_sac", dsac, out / "dsac",
+                  counters, card, False)
+    cfg = e["algo"].config
+    log = (out / "dsac" / "debug.log").read_text()
+    if (cfg.alpha, cfg.discount) != (0.05, 0.95) or \
+            "alpha=0.05" not in log or "discount=0.95" not in log:
+        fail(f"discrete SAC trains at alpha {cfg.alpha}, discount "
+             f"{cfg.discount}, not the spec's 0.05 and 0.95")
+    print(f"discrete SAC trainer (debug.log): alpha {cfg.alpha}, discount "
+          f"{cfg.discount}, policy_lr {cfg.policy_lr}, soft_target_tau "
+          f"{cfg.soft_target_tau} (the spec's discrete_sac_params)")
+    result["discrete_sac"] = dict(
+        costs("discrete SAC", e["algo"], e["runner"],
+              dsac["rl_alg_params"]["batch_size"], 22),
+        launches=e["launches"], epoch=e["row"], seconds=e["seconds"])
+
+    # DDPG and SAC-V on hopper: phase 11's cut copy of TD3_SPEC
+    with open(ROOT / "build" / "chip_smoke_td3" / Path(TD3_SPEC).name) as f:
+        (td3,) = build_variants(yaml.safe_load(f))
+    reads = {"ddpg": ("ddpg_params", ("discount", "reward_scale",
+                                      "policy_lr", "qf_lr",
+                                      "soft_target_tau")),
+             "sac_v": ("sac_params", ("discount", "reward_scale",
+                                      "soft_target_tau", "policy_lr",
+                                      "qf_lr"))}
+    for name, (block, keys) in reads.items():
+        v = copy.deepcopy(td3)
+        p = v.pop("td3_params")
+        v[block] = {k: p[k] for k in keys if k in p}
+        what = {"ddpg": "DDPG", "sac_v": "SAC-V"}[name]
+        e = one_epoch(what, name, v, out / name, counters, card, True)
+        if e["launches"]["planar_control_step"] != 1675:
+            fail(f"{what}: K1 launched {e['launches']} times, not 1675")
+        result[name] = dict(costs(what, e["algo"], e["runner"],
+                                  v["rl_alg_params"]["batch_size"], 23),
+                            launches=e["launches"], epoch=e["row"],
+                            seconds=e["seconds"])
+    return result
 
 
 def main() -> int:
@@ -1483,16 +1840,18 @@ def main() -> int:
                               min_steps=1024)
 
     # ---- 9. the YAML launcher: sac_hopper_optable.yaml, save and resume ----
+    counters = {"planar_control_step": k1s, "planar_forward": k1,
+                "fused_sac_chain": k2, "fused_policy_forward": k3,
+                "pgs_solve": k4}
     launcher = launcher_phase(
-        card, {"planar_control_step": k1s, "planar_forward": k1,
-               "fused_sac_chain": k2, "fused_policy_forward": k3,
-               "pgs_solve": k4},
-        (k2, fused_sac.fused_sac_chain_plain), k1_step_check, k2_modes)
+        card, counters, (k2, fused_sac.fused_sac_chain_plain),
+        k1_step_check, k2_modes)
     # ---- 10. adversarial IL: gail_hopper.yaml, save and resume ------------
-    gail = gail_phase(
-        card, {"planar_control_step": k1s, "planar_forward": k1,
-               "fused_sac_chain": k2, "fused_policy_forward": k3,
-               "pgs_solve": k4}, k1_step_check)
+    gail = gail_phase(card, counters, k1_step_check)
+    # ---- 11. TD3: td3_hopper.yaml, save and resume -----------------------
+    td3 = td3_phase(card, counters, k1_step_check)
+    # ---- 12. DQN, discrete SAC, DDPG, SAC-V through the launcher ----------
+    others = other_trainers_phase(card, counters)
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -1514,7 +1873,9 @@ def main() -> int:
                                 "max_abs_err": launcher["k1_err"][b]}
                       for b, v in launcher["k1_ms"].items()},
          "gail": {f"b{b}": {"ms": v, "max_abs_err": gail["k1_err"][b]}
-                  for b, v in gail["k1_ms"].items()}},
+                  for b, v in gail["k1_ms"].items()},
+         "td3": {f"b{b}": {"ms": v, "max_abs_err": td3["k1_err"][b]}
+                 for b, v in td3["k1_ms"].items()}},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
@@ -1567,11 +1928,14 @@ def main() -> int:
     ]
     # K1's count is the hopper main path's (its control-step mode), K4's
     # the ant main path's; K2 and K3 run on all three, and the line carries
-    # the ant path's; `launches_by_path` adds the launcher's run A and the
-    # GAIL launcher's run A
+    # the ant path's; `launches_by_path` adds the launcher's run A, the
+    # GAIL launcher's run A, TD3's and DQN's run A and the 1-epoch runs of
+    # DDPG, SAC-V and discrete SAC
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
-             "gail": gail["launches"]}
+             "gail": gail["launches"], "td3": td3["launches"],
+             **{name: others[name]["launches"]
+                for name in ("ddpg", "sac_v", "dqn", "discrete_sac")}}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -113,11 +113,11 @@ def _means(metrics: List[Dict[str, torch.Tensor]]
 
 class AdvIRL:
     """`policy_trainer` is an off-policy trainer with `init(seed)`,
-    `act(state, obs, eps, deterministic)` and `train_step(state, batch,
-    eps_next, eps_new)` (SAC); `expert_replay` the demo buffer
-    (data/demo.py).  The loop calls `train_call(state, replay, noise)` in
-    place of its own gradient steps (the reference's _do_training
-    override)."""
+    `act(state, obs, eps, deterministic)`, `act_noise` and
+    `train_step(state, batch, eps_next, eps_new)` (SAC); `expert_replay`
+    the demo buffer (data/demo.py).  The loop calls `train_call(state,
+    replay, noise)` in place of its own gradient steps (the reference's
+    _do_training override)."""
 
     def __init__(self, obs_size: int, action_size: int, policy_trainer,
                  expert_replay: ReplayState,
@@ -178,6 +178,9 @@ class AdvIRL:
             expert=expert,
             rew_stats=(zero(), zero(), zero()) if cfg.reward_norm else None,
         )
+
+    def act_noise(self, noise, n: int) -> tuple:
+        return self.policy_trainer.act_noise(noise, n)
 
     def act(self, state: AdvIRLState, obs: torch.Tensor,
             eps: torch.Tensor | None = None,

@@ -136,6 +136,10 @@ class Adam:
                 copy_into(m, t, f"Adam.{name}[{i}]")
         self.count = int(state["count"])
 
+    def grad(self, loss: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """d loss / d (this optimizer's parameters), by autograd."""
+        return torch.autograd.grad(loss, self.params)
+
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         self.count += 1
         self.apply(grads, self.count)
@@ -207,6 +211,17 @@ class SAC:
             qf_opt=Adam(qf.parameters(), cfg.qf_lr, cfg.beta_1),
             alpha_opt=Adam([log_alpha], cfg.alpha_lr, cfg.beta_1),
         )
+
+    def act_noise(self, noise, n: int) -> tuple[torch.Tensor]:
+        """The draws of one stochastic `act` for n envs: (noise.act, N(0, 1)
+        [n, A])."""
+        return (noise.act((n, self.action_size)),)
+
+    def train_noise(self, noise, batch_size: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The draws of one `train_step`: noise.train, (eps_next, eps_new)
+        N(0, 1) [batch_size, A] each."""
+        return noise.train((batch_size, self.action_size))
 
     @torch.no_grad()
     def act(self, state: SACState, obs: torch.Tensor,

@@ -1,5 +1,6 @@
 """Device-resident replay ring (counterpart: ilswiss_tpu/data/replay.py;
-`round_capacity`, `replay_init`, `replay_add`, `replay_sample`).
+`round_capacity`, `replay_init`, `replay_add`, `replay_sample`,
+`replay_sample_nstep`).
 
 Fixed `[capacity, ...]` tensors, a write cursor and per-row episode ids
 `env_idx * 2**20 + env_ep`.  The capacity is rounded up to a multiple of
@@ -7,6 +8,8 @@ the write batch so one write never splits across the wrap.  Unlike the
 JAX functions, `replay_add` writes into the ring's tensors IN PLACE and
 returns the same state, which saves a copy of the ring per write; the
 cursor and size are host integers, since every write has the same size.
+A discrete env's ring keeps its actions as `[capacity]` int32 indices,
+as the JAX ring does; they are cast to int64 only where they index.
 Sampling takes its uniforms as a tensor.
 """
 
@@ -36,12 +39,17 @@ def round_capacity(capacity: int, write_batch: int) -> int:
 
 
 def replay_init(capacity: int, obs_size: int, action_size: int,
-                write_batch: int, device) -> ReplayState:
+                write_batch: int, device, discrete: bool = False
+                ) -> ReplayState:
+    """The ring, its capacity rounded up to a multiple of `write_batch`;
+    a `discrete` env's actions are int32 indices [capacity]."""
     capacity = round_capacity(capacity, write_batch)
     kw = dict(dtype=torch.float32, device=device)
+    action = (torch.zeros((capacity,), dtype=torch.int32, device=device)
+              if discrete else torch.zeros((capacity, action_size), **kw))
     data = {
         "obs": torch.zeros((capacity, obs_size), **kw),
-        "action": torch.zeros((capacity, action_size), **kw),
+        "action": action,
         "reward": torch.zeros((capacity,), **kw),
         "next_obs": torch.zeros((capacity, obs_size), **kw),
         "terminal": torch.zeros((capacity,), **kw),
@@ -86,6 +94,48 @@ def replay_sample(state: ReplayState, u: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:
     """Uniform gather over the valid rows: row min(int(u * size), size - 1)
     for each uniform in `u` [batch]."""
-    idx = torch.clamp_max((u * float(state.size)).to(torch.int64),
-                          state.size - 1)
+    idx = _rows(state, u)
     return {k: v[idx] for k, v in state.data.items()}
+
+
+def _rows(state: ReplayState, u: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_max((u * float(state.size)).to(torch.int64),
+                           state.size - 1)
+
+
+def replay_sample_nstep(state: ReplayState, u: torch.Tensor, n_step: int,
+                        discount: float) -> Dict[str, torch.Tensor]:
+    """An n-step batch from the rows `u` picks (as `replay_sample`): for
+    each, the discounted sum of up to `n_step` rewards of its env, the
+    next_obs and terminal of the last step summed, and `n_step_used`.
+
+    Consecutive steps of one env sit `write_batch` rows apart (the
+    lockstep write).  A row's lookahead stops before a row of another
+    episode id (an episode boundary, the write cursor, an unwritten row)
+    and after a terminal, as the JAX function's scan does."""
+    capacity = state.data["reward"].shape[0]
+    stride = state.env_ep.shape[0]
+    idx = _rows(state, u)
+    base_ep = state.ep_id[idx]
+    reward_acc = torch.zeros(idx.shape, dtype=torch.float32,
+                             device=idx.device)
+    valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    last_off = torch.zeros(idx.shape, dtype=torch.int32, device=idx.device)
+    for k in range(n_step):
+        off_idx = (idx + k * stride) % capacity
+        valid_k = torch.logical_and(valid, state.ep_id[off_idx] == base_ep)
+        reward_acc = reward_acc + torch.where(
+            valid_k, (discount ** k) * state.data["reward"][off_idx], 0.0)
+        last_off = torch.where(valid_k, k, last_off)
+        # no extension past a terminal inside the window
+        valid = torch.logical_and(
+            valid_k, torch.logical_not(state.data["terminal"][off_idx] > 0.5))
+    end_idx = (idx + last_off.to(torch.int64) * stride) % capacity
+    return {
+        "obs": state.data["obs"][idx],
+        "action": state.data["action"][idx],
+        "reward": reward_acc,
+        "next_obs": state.data["next_obs"][end_idx],
+        "terminal": state.data["terminal"][end_idx],
+        "n_step_used": last_off + 1,
+    }

@@ -1,9 +1,9 @@
 """Env registry and factory (counterpart: ilswiss_tpu/envs/__init__.py).
 
 `make(name)` returns a static `Environment`, `make_vec(name, num_envs)`
-the lockstep vectorized env.  Ported: the MuJoCo locomotion models and
-pendulum and mountain.  Not ported yet: cartpole (ROADMAP section 1 item
-2.1), reach2d (item 2.5) and pendulum_pixels (item 2.7).
+the lockstep vectorized env.  Ported: the MuJoCo locomotion models,
+pendulum, mountain and cartpole.  Not ported yet: reach2d (ROADMAP
+section 1 item 2.5) and pendulum_pixels (item 2.7).
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ from typing import Callable, Dict
 from ilswiss_tpu_torch.envs.base import Environment, EnvState, StepOutput
 from ilswiss_tpu_torch.envs.vector import Transition, VectorEnv
 from ilswiss_tpu_torch.envs import locomotion
-from ilswiss_tpu_torch.envs.classic import MountainCarContinuous, Pendulum
+from ilswiss_tpu_torch.envs.classic import (
+    CartPole, MountainCarContinuous, Pendulum,
+)
 
 ENV_REGISTRY: Dict[str, Callable[..., Environment]] = {}
 
@@ -25,6 +27,7 @@ def register(name: str, ctor: Callable[..., Environment]) -> None:
 # Names follow the reference registry keys (rlkit/envs/envs_dict.py).
 register("pendulum", Pendulum)
 register("mountain", MountainCarContinuous)
+register("cartpole", CartPole)
 locomotion.register_all(register)
 
 

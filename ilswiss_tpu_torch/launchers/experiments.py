@@ -1,5 +1,6 @@
 """Variant-dict -> training run (counterpart:
-ilswiss_tpu/launchers/experiments.py; the SAC and AdvIRL parts).
+ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL and
+policy evaluation).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -64,7 +65,6 @@ GYM_ENV_IDS: Dict[str, str] = {
 # device envs of the JAX registry that the port has not ported yet, with
 # the ROADMAP.md section 1 item that ports each
 UNPORTED_DEVICE_ENVS: Dict[str, str] = {
-    "cartpole": "2.1",
     "reach2d": "2.5",
     "pendulum_pixels": "2.7",
 }
@@ -245,6 +245,8 @@ def _run_off_policy(algo, vec: VectorEnv, rl: Dict, logger: Logger,
             (lambda r: {"algo_state": r.algo_state}) if light else None),
     )
 
+    # the configuration the trainer runs with, as the spec was read
+    logger.log(f"trainer {type(algo).__name__}: {algo.config}")
     runner = loop.init(seed)
     runner, start_epoch, resumed, meta = _maybe_resume(variant, logger,
                                                        runner)
@@ -308,14 +310,26 @@ def _run_off_policy(algo, vec: VectorEnv, rl: Dict, logger: Logger,
 
 
 # --------------------------------------------------------------------------
+def _on_device_vec(variant: Dict, default_exp_name: str, device):
+    """`_setup`, the host route's check, and the vectorized env."""
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, default_exp_name)
+    _route_host(variant, env_name)
+    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    return seed, vec, rl, logger
+
+
+def _nets(variant: Dict) -> Dict[str, int]:
+    return dict(net_size=int(variant.get("net_size", 256)),
+                num_hidden_layers=int(variant.get("num_hidden_layers", 2)))
+
+
 def run_sac(variant: Dict[str, Any], device=None):
     """SAC auto-alpha (reference run_scripts/sac_alpha_exp_script.py)."""
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
 
     device = resolve_device(device)
-    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "sac")
-    _route_host(variant, env_name)
-    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    seed, vec, rl, logger = _on_device_vec(variant, "sac", device)
     p = _alg(variant, "sac_params")
     algo = SAC(
         obs_size=vec.env.observation_size,
@@ -333,11 +347,137 @@ def run_sac(variant: Dict[str, Any], device=None):
                 p.get("policy_std_reg_weight", 1e-3)),
             target_entropy=p.get("target_entropy"),
         ),
-        net_size=int(variant.get("net_size", 256)),
-        num_hidden_layers=int(variant.get("num_hidden_layers", 2)),
         use_fused_chain=bool(p.get("use_fused_chain", False)),
-        device=device,
+        device=device, **_nets(variant))
+    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+
+
+def run_sac_v(variant: Dict[str, Any], device=None):
+    """SAC with a value network and a fixed alpha (reference
+    run_scripts/sac_exp_script.py); its parameters under `sac_params`."""
+    from ilswiss_tpu_torch.algorithms.sac_v import SACV, SACVConfig
+
+    device = resolve_device(device)
+    seed, vec, rl, logger = _on_device_vec(variant, "sac_v", device)
+    p = _alg(variant, "sac_params")
+    algo = SACV(
+        obs_size=vec.env.observation_size,
+        action_size=vec.env.action_size,
+        config=SACVConfig(
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            alpha=float(p.get("alpha", 1.0)),
+            soft_target_tau=float(p.get("soft_target_tau", 5e-3)),
+            policy_lr=float(p.get("policy_lr", 3e-4)),
+            qf_lr=float(p.get("qf_lr", 3e-4)),
+            vf_lr=float(p.get("vf_lr", 1e-3)),
+        ),
+        device=device, **_nets(variant))
+    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+
+
+def run_td3(variant: Dict[str, Any], device=None):
+    """TD3 (reference run_scripts/td3_exp_script.py).  The target
+    smoothing's sigma and clip are read as `target_policy_noise` /
+    `target_policy_noise_clip`, as the JAX launcher reads them, or as
+    `policy_noise` / `policy_noise_clip`, the names
+    exp_specs/td3/td3_humanoid.yaml writes and the JAX launcher ignores;
+    the `target_*` name wins where both are given."""
+    from ilswiss_tpu_torch.algorithms.td3 import TD3, TD3Config
+
+    device = resolve_device(device)
+    seed, vec, rl, logger = _on_device_vec(variant, "td3", device)
+    p = _alg(variant, "td3_params")
+    algo = TD3(
+        obs_size=vec.env.observation_size,
+        action_size=vec.env.action_size,
+        config=TD3Config(
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            soft_target_tau=float(p.get("soft_target_tau", 5e-3)),
+            policy_lr=float(p.get("policy_lr", 1e-3)),
+            qf_lr=float(p.get("qf_lr", 1e-3)),
+            target_policy_noise=float(p.get(
+                "target_policy_noise", p.get("policy_noise", 0.2))),
+            target_policy_noise_clip=float(p.get(
+                "target_policy_noise_clip", p.get("policy_noise_clip", 0.5))),
+            policy_and_target_update_period=int(
+                p.get("policy_and_target_update_period", 2)),
+            exploration_noise=float(p.get("exploration_noise", 0.1)),
+        ),
+        device=device, **_nets(variant))
+    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+
+
+def run_ddpg(variant: Dict[str, Any], device=None):
+    """DDPG (reference run_scripts/ddpg_exp_script.py)."""
+    from ilswiss_tpu_torch.algorithms.ddpg import DDPG, DDPGConfig
+
+    device = resolve_device(device)
+    seed, vec, rl, logger = _on_device_vec(variant, "ddpg", device)
+    p = _alg(variant, "ddpg_params")
+    algo = DDPG(
+        obs_size=vec.env.observation_size,
+        action_size=vec.env.action_size,
+        config=DDPGConfig(
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            policy_lr=float(p.get("policy_lr", 1e-4)),
+            qf_lr=float(p.get("qf_lr", 1e-3)),
+            soft_target_tau=float(p.get("soft_target_tau", 1e-2)),
+        ),
+        device=device, **_nets(variant))
+    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+
+
+def run_dqn(variant: Dict[str, Any], device=None):
+    """DQN / Double DQN on a discrete env (cartpole).  Epsilon decays with
+    the env steps of training (algorithms/dqn.py), where the JAX package
+    counts gradient steps."""
+    from ilswiss_tpu_torch.algorithms.dqn import DQN, DQNConfig
+
+    device = resolve_device(device)
+    seed, vec, rl, logger = _on_device_vec(variant, "dqn", device)
+    p = _alg(variant, "dqn_params")
+    algo = DQN(
+        obs_size=vec.env.observation_size,
+        num_actions=vec.env.action_size,
+        config=DQNConfig(
+            discount=float(p.get("discount", 0.99)),
+            qf_lr=float(p.get("qf_lr", 1e-3)),
+            double_dqn=bool(p.get("double_dqn", True)),
+            target_update_period=int(p.get("target_update_period", 500)),
+        ),
+        device=device, **_nets(variant))
+    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+
+
+def run_discrete_sac(variant: Dict[str, Any], device=None):
+    """Discrete SAC (reference run_scripts/discrete_sac_exp_script.py).
+    Its parameters are read from `discrete_sac_params`, the block
+    exp_specs/sac/sac_cartpole_d.yaml writes, or from `sac_params` where
+    only that is given; the JAX launcher reads `sac_params` alone and so
+    trains that spec with its defaults (ROADMAP.md section 3)."""
+    from ilswiss_tpu_torch.algorithms.discrete_sac import (
+        DiscreteSAC, DiscreteSACConfig,
     )
+
+    device = resolve_device(device)
+    seed, vec, rl, logger = _on_device_vec(variant, "discrete_sac", device)
+    p = _alg(variant, "discrete_sac_params" if variant.get(
+        "discrete_sac_params") else "sac_params")
+    algo = DiscreteSAC(
+        obs_size=vec.env.observation_size,
+        num_actions=vec.env.action_size,
+        config=DiscreteSACConfig(
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            alpha=float(p.get("alpha", 1.0)),
+            soft_target_tau=float(p.get("soft_target_tau", 1e-2)),
+            policy_lr=float(p.get("policy_lr", 1e-3)),
+            qf_lr=float(p.get("qf_lr", 1e-3)),
+        ),
+        device=device, **_nets(variant))
     return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
 
 
@@ -537,16 +677,16 @@ def _unported_run(name: str, item: str) -> Callable:
 # yet raise, naming the ROADMAP.md section 1 item that ports them
 EXPERIMENTS: Dict[str, Callable] = {
     "sac": run_sac,
+    "sac_v": run_sac_v,
+    "td3": run_td3,
+    "ddpg": run_ddpg,
+    "dqn": run_dqn,
+    "discrete_sac": run_discrete_sac,
     "eval_policy": run_eval_policy,
     "adv_irl": run_adv_irl,
     "gail": run_adv_irl,
     **{name: _unported_run(name, item) for name, item in (
         ("sac_vmap_seeds", "2.10"),
-        ("sac_v", "2.1"),
-        ("td3", "2.1"),
-        ("ddpg", "2.1"),
-        ("dqn", "2.1"),
-        ("discrete_sac", "2.1"),
         ("ppo", "2.3"),
         ("bc", "2.6"),
         ("dagger", "2.6"),

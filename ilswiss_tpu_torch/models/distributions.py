@@ -4,8 +4,9 @@ ilswiss_tpu/models/distributions.py).
 Same formulas as the JAX module: the tanh-Normal log-prob uses the
 `log(1 - a^2 + 1e-6)` Jacobian correction, log-probs are summed over the
 last axis with a kept dimension, and log-std is clamped to [-20, 2].
-Sampling takes its standard-normal noise as a tensor argument, so a test
-can hand the port and the JAX package the same draws.
+Sampling takes its noise as a tensor argument (standard normals, or the
+standard Gumbel draws of a categorical sample), so a test can hand the
+port and the JAX package the same draws.
 """
 
 from __future__ import annotations
@@ -60,3 +61,25 @@ def tanh_normal_log_prob(mean: torch.Tensor, log_std: torch.Tensor,
     correction = torch.sum(torch.log(1.0 - action ** 2 + TANH_EPS),
                            dim=-1, keepdim=True)
     return base - correction
+
+
+# --- Categorical (the reference's DiscretePolicy softmax head) ------------
+def categorical_sample(logits: torch.Tensor, gumbel: torch.Tensor
+                       ) -> torch.Tensor:
+    """The Gumbel-max sample argmax(logits + g) for standard Gumbel draws
+    `gumbel` [..., A], as `jax.random.categorical` computes it from its
+    key; ties break to the first index on both sides."""
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+def categorical_log_prob(logits: torch.Tensor, action: torch.Tensor
+                         ) -> torch.Tensor:
+    """log pi(action) [..., 1] for integer actions [...]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.take_along_dim(logp, action[..., None].to(torch.int64),
+                                dim=-1)
+
+
+def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.sum(torch.exp(logp) * logp, dim=-1, keepdim=True)

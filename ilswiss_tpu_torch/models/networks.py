@@ -6,12 +6,13 @@ draws weight and bias from U(-init_w, init_w).  Every draw comes from the
 `torch.Generator` the caller passes.  Layers keep the flax names
 (`hidden_i`, `output`) so the weight bridge (utils/convert.py) maps them
 one to one; `nn.Linear.weight` is `[out, in]` where a flax kernel is
-`[in, out]`.
+`[in, out]`.  `output_activation` (for example `torch.tanh`, the TD3 and
+DDPG actor's) is applied after the output layer, as the JAX `MLP`'s.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -38,9 +39,11 @@ class MLP(nn.Module):
 
     def __init__(self, input_size: int, hidden_sizes: Sequence[int],
                  output_size: int, generator: torch.Generator,
-                 init_w: float = 3e-3):
+                 init_w: float = 3e-3,
+                 output_activation: Callable | None = None):
         super().__init__()
         self.num_hidden = len(hidden_sizes)
+        self.output_activation = output_activation
         width = input_size
         for i, h in enumerate(hidden_sizes):
             layer = nn.Linear(width, h)
@@ -56,7 +59,10 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.hidden_layers():
             x = torch.relu(layer(x))
-        return self.output(x)
+        x = self.output(x)
+        if self.output_activation is not None:
+            x = self.output_activation(x)
+        return x
 
 
 class FlattenMLP(nn.Module):

@@ -17,7 +17,21 @@ the RunnerState as JAX holds its key.  `Noise` draws from a
 `torch.Generator` on the loop's device; a test can swap in an object with
 the same methods that replays the JAX package's draws.  A checkpoint
 holds the generator's state (`Noise.state_dict`), so a resumed run draws
-what the uninterrupted one would have drawn.
+what the uninterrupted one would have drawn.  The algorithm names its
+own draws: `act_noise(noise, n)` gives the extra arguments of one
+stochastic `act` for n envs and `train_noise(noise, batch_size)` those of
+one `train_step`, each a tuple of tensors drawn through named `Noise`
+methods (SAC: `act`, then `train`; see each algorithm's docstring).  An
+iteration draws in this order: the acting draws (warmup: `warmup_action`,
+or `warmup_index` for a discrete env), `reset`, then per gradient step
+`replay` and the step's draws.
+
+A discrete env (`env.discrete`, cartpole) gets a ring of int32 action
+indices, and its warmup takes integer actions uniform in [0,
+action_size) (JAX loop.py:82-89, :100-115).  An algorithm with
+`note_env_steps(state, n)` (DQN, whose epsilon decays with the env steps
+of training) is told the iteration's env steps at the end of each
+training iteration.
 """
 
 from __future__ import annotations
@@ -66,9 +80,17 @@ class Noise:
         # a generator's state is a CPU byte tensor on every device
         self.generator.set_state(state["generator"].cpu())
 
+    def _randint(self, shape, high: int) -> torch.Tensor:
+        return torch.randint(0, high, shape, device=self.device,
+                             generator=self.generator)
+
     def warmup_action(self, shape) -> torch.Tensor:
         """Uniform [-1, 1] warmup actions."""
         return self._uniform(shape, -1.0, 1.0)
+
+    def warmup_index(self, n: int, num_actions: int) -> torch.Tensor:
+        """Integer warmup actions [n], uniform in [0, num_actions)."""
+        return self._randint((n,), num_actions)
 
     def act(self, shape) -> torch.Tensor:
         """N(0, 1) noise of the acting sample."""
@@ -91,6 +113,35 @@ class Noise:
         penalty's interpolates (algorithms/adv_irl.py)."""
         return self._uniform((n, 1), 0.0, 1.0)
 
+    def smoothing(self, shape) -> torch.Tensor:
+        """N(0, 1) noise of TD3's target-policy smoothing."""
+        return self._normal(shape)
+
+    def sample(self, shape) -> torch.Tensor:
+        """N(0, 1) noise of the one policy sample of a SAC-V step."""
+        return self._normal(shape)
+
+    def gumbel(self, shape) -> torch.Tensor:
+        """Standard Gumbel draws -log(-log(u)), u uniform in [tiny, 1), as
+        `jax.random.gumbel`: the noise of a categorical sample."""
+        tiny = torch.finfo(torch.float32).tiny
+        return -torch.log(-torch.log(self._uniform(shape, tiny, 1.0)))
+
+    def flip(self, shape) -> torch.Tensor:
+        """Uniforms in [0, 1) that decide where an explorer takes its
+        random action (below epsilon)."""
+        return self._uniform(shape, 0.0, 1.0)
+
+    def random_index(self, shape, num_actions: int) -> torch.Tensor:
+        """The random actions of epsilon-greedy, uniform in
+        [0, num_actions)."""
+        return self._randint(shape, num_actions)
+
+    def random_action(self, shape) -> torch.Tensor:
+        """The uniform [-1, 1) actions of the Gaussian-and-epsilon
+        explorer."""
+        return self._uniform(shape, -1.0, 1.0)
+
 
 @dataclass
 class RunnerState:
@@ -103,11 +154,12 @@ class RunnerState:
 
 class OffPolicyLoop:
     """Off-policy runtime for an algorithm with `init(seed)`,
-    `act(state, obs, eps)` and either `train_call(state, replay, noise)`
-    (AdvIRL: it takes an iteration's updates and draws itself), or
-    `train_step(state, batch, eps_next, eps_new)` and, where
-    `use_fused_chain` is set, `train_chain(state, replay, noise,
-    batch_size, num_steps)` (SAC)."""
+    `act(state, obs, *draws)` with `act_noise(noise, n)`, and either
+    `train_call(state, replay, noise)` (AdvIRL: it takes an iteration's
+    updates and draws itself), or `train_step(state, batch, *draws)` with
+    `train_noise(noise, batch_size)` and, where `use_fused_chain` is set,
+    `train_chain(state, replay, noise, batch_size, num_steps)` (SAC).
+    SAC, SAC-V, TD3, DDPG, discrete SAC, DQN and AdvIRL fit."""
 
     def __init__(self, vec_env: VectorEnv, algo, config: OffPolicyConfig):
         self.vec_env = vec_env
@@ -127,7 +179,7 @@ class OffPolicyLoop:
         replay = replay_init(self.config.replay_capacity,
                              env.observation_size, env.action_size,
                              write_batch=self.vec_env.num_envs,
-                             device=self.device)
+                             device=self.device, discrete=env.discrete)
         return RunnerState(
             noise=noise,
             env_state=self.vec_env.reset(
@@ -140,13 +192,14 @@ class OffPolicyLoop:
     # ------------------------------------------------------------------
     def _collect_iter(self, runner: RunnerState, random_actions: bool
                       ) -> RunnerState:
-        noise, n = runner.noise, self.vec_env.num_envs
-        shape = (n, self.vec_env.env.action_size)
-        if random_actions:
-            action = noise.warmup_action(shape)
+        noise, n, env = runner.noise, self.vec_env.num_envs, self.vec_env.env
+        if random_actions and env.discrete:
+            action = noise.warmup_index(n, env.action_size)
+        elif random_actions:
+            action = noise.warmup_action((n, env.action_size))
         else:
             action = self.algo.act(runner.algo_state, runner.env_state.obs,
-                                   noise.act(shape))
+                                   *self.algo.act_noise(noise, n))
         env_state, tr = self.vec_env.step(
             runner.env_state, action, noise.reset(self.vec_env.env, n))
         if self.config.no_terminal:
@@ -171,17 +224,18 @@ class OffPolicyLoop:
                 runner.algo_state, runner.replay, runner.noise,
                 cfg.batch_size, self.grad_steps_per_iter)
             return runner, {k: v.mean() for k, v in metrics.items()}
-        shape = (cfg.batch_size, self.vec_env.env.action_size)
         sums: Dict[str, torch.Tensor] = {}
         state = runner.algo_state
         for _ in range(self.grad_steps_per_iter):
             batch = replay_sample(runner.replay,
                                   runner.noise.replay(cfg.batch_size))
-            eps_next, eps_new = runner.noise.train(shape)
-            state, metrics = self.algo.train_step(state, batch, eps_next,
-                                                  eps_new)
+            state, metrics = self.algo.train_step(
+                state, batch,
+                *self.algo.train_noise(runner.noise, cfg.batch_size))
             for k, v in metrics.items():
                 sums[k] = v if k not in sums else sums[k] + v
+        if hasattr(self.algo, "note_env_steps"):
+            self.algo.note_env_steps(state, self.vec_env.num_envs)
         runner.algo_state = state
         return runner, {k: v / self.grad_steps_per_iter
                         for k, v in sums.items()}

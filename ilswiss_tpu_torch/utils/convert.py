@@ -12,9 +12,13 @@ maps:
     ravelled vector in `ravel_pytree` order: dict keys sorted, so `bias`
     before `kernel` and the policy layers `hidden_0, hidden_1, log_std,
     mean`; a kernel is ravelled in its flax [in, out] layout;
-  * the AdvIRL discriminator's Adam (plain `optax.adam`) keeps its moments
-    as trees shaped like its params; its BatchNorm's running averages are
-    the `batch_stats` collection;
+  * a plain `optax.adam` (the AdvIRL discriminator's, and every optimizer
+    of TD3, DDPG, SAC-V, discrete SAC and DQN) keeps its moments as trees
+    shaped like its params; the discriminator's BatchNorm running averages
+    are the `batch_stats` collection;
+  * the other off-policy trainers' states keep one params tree per
+    network (`<name>_params`, the port's module `<name>`), one optimizer
+    per trained network and their step counters, which become ints;
   * a JAX demo buffer of stride 1 has `env_ep=None`, the port's a zero
     vector of length 1 (data/demo.py).
 
@@ -30,24 +34,38 @@ import numpy as np
 import torch
 
 from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLState
+from ilswiss_tpu_torch.algorithms.ddpg import DDPGState
+from ilswiss_tpu_torch.algorithms.discrete_sac import DiscreteSACState
+from ilswiss_tpu_torch.algorithms.dqn import DQNState
 from ilswiss_tpu_torch.algorithms.sac import SAC, Adam, SACState, TwinQ
+from ilswiss_tpu_torch.algorithms.sac_v import SACVState
+from ilswiss_tpu_torch.algorithms.td3 import TD3State
 from ilswiss_tpu_torch.data.replay import ReplayState
 from ilswiss_tpu_torch.envs.base import EnvState
 from ilswiss_tpu_torch.models.discriminators import MLPDisc
 from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
 
-# (port tensor, flax path, transposed) in ravel_pytree order
+# (port tensor, flax path, transposed); the lists that feed optax.flatten's
+# moments are in ravel_pytree order
 _Leaf = Tuple[torch.Tensor, Tuple[str, ...], bool]
 
 
-def _policy_leaves(policy: TanhGaussianPolicy) -> List[_Leaf]:
-    names = [f"hidden_{i}" for i in range(policy.num_hidden)]
+def _module_leaves(module: torch.nn.Module) -> List[_Leaf]:
+    """Every parameter of a module built of `nn.Linear` layers named as
+    the flax layers (MLP, FlattenMLP, the policies), at its path in the
+    flax variables: `a.b.weight` is ("params", "a", "b", "kernel")."""
     out = []
-    for name in sorted(names + ["mean", "log_std"]):
-        layer = getattr(policy, name)
-        out.append((layer.bias, ("params", name, "bias"), False))
-        out.append((layer.weight, ("params", name, "kernel"), True))
+    for name, t in module.named_parameters():
+        *path, kind = name.split(".")
+        out.append((t, ("params", *path,
+                        "kernel" if kind == "weight" else kind),
+                    kind == "weight"))
     return out
+
+
+def _policy_leaves(policy: TanhGaussianPolicy) -> List[_Leaf]:
+    """The policy's leaves in ravel_pytree order (paths sorted)."""
+    return sorted(_module_leaves(policy), key=lambda leaf: leaf[1])
 
 
 def _twinq_leaves(qf: TwinQ) -> List[_Leaf]:
@@ -126,6 +144,23 @@ def _dump_adam(opt: Adam, leaves: List[_Leaf]) -> Dict[str, Any]:
     return {"count": opt.count, "mu": ravel(opt.mu), "nu": ravel(opt.nu)}
 
 
+@torch.no_grad()
+def _load_adam_tree(opt: Adam, leaves: List[_Leaf], adam_state) -> None:
+    """A plain optax.adam's count and moment trees into `opt`."""
+    opt.count = int(np.asarray(adam_state.count))
+    for tree, moments in ((adam_state.mu, opt.mu), (adam_state.nu, opt.nu)):
+        for (t, path, tr), m in zip(leaves,
+                                    _moments_of(opt, leaves, moments)):
+            m.copy_(_from_flax(_get(tree, path), m, tr))
+
+
+def _dump_adam_tree(opt: Adam, leaves: List[_Leaf]) -> Dict[str, Any]:
+    def tree(moments):
+        return _dump_leaves([(m, path, tr) for (_, path, tr), m in zip(
+            leaves, _moments_of(opt, leaves, moments))])
+    return {"count": opt.count, "mu": tree(opt.mu), "nu": tree(opt.nu)}
+
+
 def _alpha_leaves(state: SACState) -> List[_Leaf]:
     return [(state.log_alpha, (), False)]
 
@@ -167,12 +202,15 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 
 def env_state_from_jax(jstate, device) -> EnvState:
-    """A batched locomotion EnvState: internal (q, qd, warm-start row
-    forces: [B, 38] for hopper, [B, 116] for ant), obs and t; the JAX
-    per-env keys have no counterpart and are dropped."""
+    """A batched EnvState: internal (locomotion: q, qd, warm-start row
+    forces, [B, 38] for hopper, [B, 116] for ant; a classic env's one
+    [B, n] array becomes a 1-tuple), obs and t; the JAX per-env keys have
+    no counterpart and are dropped."""
+    internal = jstate.internal
+    if not isinstance(internal, (tuple, list)):
+        internal = (internal,)
     return EnvState(
-        internal=tuple(_tensor(x, device, torch.float32)
-                       for x in jstate.internal),
+        internal=tuple(_tensor(x, device, torch.float32) for x in internal),
         obs=_tensor(jstate.obs, device, torch.float32),
         t=_tensor(jstate.t, device, torch.int32),
     )
@@ -243,16 +281,9 @@ def adv_irl_state_from_jax(algo: AdvIRL, jstate) -> AdvIRLState:
     averages, its Adam's moments and count, the inner SACState, the
     expert buffer and the reward statistics."""
     state = algo.init(0)
-    leaves = _disc_leaves(state.disc)
     disc_from_jax(state.disc, jstate.disc_params)
-    adam = jstate.disc_opt[0]
-    opt = state.disc_opt
-    opt.count = int(np.asarray(adam.count))
-    with torch.no_grad():
-        for tree, moments in ((adam.mu, opt.mu), (adam.nu, opt.nu)):
-            for (t, path, tr), m in zip(leaves,
-                                        _moments_of(opt, leaves, moments)):
-                m.copy_(_from_flax(_get(tree, path), m, tr))
+    _load_adam_tree(state.disc_opt, _disc_leaves(state.disc),
+                    jstate.disc_opt[0])
     state.policy = sac_state_from_jax(algo.policy_trainer, jstate.policy)
     state.expert = replay_from_jax(jstate.expert, algo.device)
     if jstate.rew_stats is not None:
@@ -266,17 +297,10 @@ def adv_irl_state_to_numpy(state: AdvIRLState) -> Dict[str, Any]:
     variables, `disc_opt` {"count", "mu", "nu"} with moment trees shaped
     like the params, the inner state as `sac_state_to_numpy`, the expert
     buffer as `replay_to_numpy`, and `rew_stats`."""
-    leaves = _disc_leaves(state.disc)
-    opt = state.disc_opt
-
-    def tree(moments):
-        return _dump_leaves([(m, path, tr) for (_, path, tr), m in zip(
-            leaves, _moments_of(opt, leaves, moments))])
-
     return {
         "disc_params": disc_to_numpy(state.disc),
-        "disc_opt": {"count": opt.count, "mu": tree(opt.mu),
-                     "nu": tree(opt.nu)},
+        "disc_opt": _dump_adam_tree(state.disc_opt,
+                                    _disc_leaves(state.disc)),
         "policy": sac_state_to_numpy(state.policy),
         "expert": replay_to_numpy(state.expert),
         "rew_stats": (None if state.rew_stats is None else
@@ -287,8 +311,75 @@ def adv_irl_state_to_numpy(state: AdvIRLState) -> Dict[str, Any]:
 def batches_from_numpy(batches: Dict[str, Any], device
                        ) -> Dict[str, torch.Tensor]:
     """A dict of [K, B, ...] arrays (the fused chain's pre-sampled batches,
-    or any batch dict) as float32 tensors on `device`."""
-    return {k: _tensor(v, device, torch.float32) for k, v in batches.items()}
+    or any batch dict) as tensors on `device`: float32, but integer arrays
+    (a discrete env's actions) keep their dtype."""
+    return {k: _tensor(v, device, None if np.issubdtype(
+        np.asarray(v).dtype, np.integer) else torch.float32)
+        for k, v in batches.items()}
+
+
+# --- TD3, DDPG, SAC-V, discrete SAC, DQN ---------------------------------
+# per state class: the networks (JAX field `<name>_params`), the optimizers
+# (JAX field `<opt>`, a plain optax.adam over the network `<module>`) and
+# the step counters
+_LAYOUTS = {
+    TD3State: (("policy", "qf1", "qf2", "target_policy", "target_qf1",
+                "target_qf2"),
+               {"policy_opt": "policy", "qf1_opt": "qf1", "qf2_opt": "qf2"},
+               ("n_train_steps",)),
+    DDPGState: (("policy", "qf", "target_policy", "target_qf"),
+                {"policy_opt": "policy", "qf_opt": "qf"},
+                ("n_train_steps",)),
+    SACVState: (("policy", "qf1", "qf2", "vf", "target_vf"),
+                {"policy_opt": "policy", "qf1_opt": "qf1",
+                 "qf2_opt": "qf2", "vf_opt": "vf"}, ()),
+    DiscreteSACState: (("policy", "qf1", "qf2", "target_qf1",
+                        "target_qf2"),
+                       {"policy_opt": "policy", "qf1_opt": "qf1",
+                        "qf2_opt": "qf2"}, ()),
+    DQNState: (("qf", "target_qf"), {"qf_opt": "qf"},
+               ("n_train_steps", "n_act_steps")),
+}
+
+
+def offpolicy_state_from_jax(algo, jstate):
+    """The port state of `algo` (TD3, DDPG, SACV, DiscreteSAC or DQN) on
+    its device, holding the JAX state's values: every network's params,
+    each Adam's moments and count, and the step counters."""
+    state = algo.init(0)
+    modules, opts, counters = _LAYOUTS[type(state)]
+    for name in modules:
+        _load_leaves(_module_leaves(getattr(state, name)),
+                     getattr(jstate, f"{name}_params"))
+    for opt, module in opts.items():
+        _load_adam_tree(getattr(state, opt),
+                        _module_leaves(getattr(state, module)),
+                        getattr(jstate, opt)[0])
+    for name in counters:
+        setattr(state, name, int(np.asarray(getattr(jstate, name))))
+    return state
+
+
+def offpolicy_state_to_numpy(state) -> Dict[str, Any]:
+    """Such a port state in the JAX layouts: `<name>_params` flax trees,
+    per optimizer {"count", "mu", "nu"} with moment trees shaped like the
+    params, and the counters."""
+    modules, opts, counters = _LAYOUTS[type(state)]
+    out: Dict[str, Any] = {
+        f"{name}_params": _dump_leaves(_module_leaves(getattr(state, name)))
+        for name in modules}
+    for opt, module in opts.items():
+        out[opt] = _dump_adam_tree(getattr(state, opt),
+                                   _module_leaves(getattr(state, module)))
+    out.update({name: getattr(state, name) for name in counters})
+    return out
+
+
+# the five trainers share one layout rule
+td3_state_from_jax = ddpg_state_from_jax = sac_v_state_from_jax = \
+    discrete_sac_state_from_jax = dqn_state_from_jax = offpolicy_state_from_jax
+td3_state_to_numpy = ddpg_state_to_numpy = sac_v_state_to_numpy = \
+    discrete_sac_state_to_numpy = dqn_state_to_numpy = offpolicy_state_to_numpy
 
 
 def metrics_to_numpy(metrics: Dict[str, torch.Tensor]

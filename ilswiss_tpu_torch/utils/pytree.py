@@ -24,6 +24,14 @@ def soft_update(target: nn.Module, online: nn.Module, tau: float) -> None:
         t.mul_(1.0 - tau).add_(o * tau)
 
 
+@torch.no_grad()
+def hard_update(target: nn.Module, online: nn.Module) -> None:
+    """target <- online IN PLACE (a hard target copy; the JAX trainers'
+    per-leaf `jnp.where(do_hard, online, target)` where it holds)."""
+    for t, o in zip(target.parameters(), online.parameters()):
+        t.copy_(o)
+
+
 def copy_params(module: nn.Module) -> nn.Module:
     """A deep copy of `module` whose parameters take no gradient
     (target-network init)."""

@@ -1,14 +1,20 @@
 """The YAML launcher (ilswiss_tpu_torch/launchers/, logging/, utils/guards.py,
 utils/profiling.py and run_experiment.py) against the JAX package's:
 variant grids on every file under exp_specs/, byte-equal logger output,
-the schedule and evaluator rules on every exp_specs/sac/ spec, the guards
-and phase timer, routing, and `run_sac` end to end on pendulum on the CPU
-(tests/test_harness.py:139-172's tiny spec): progress.csv, snapshots, a
-full resume that continues the run bit for bit, a light resume, policy
-evaluation from the best snapshot, and the CLI in a process without JAX.
+the schedule and evaluator rules on every exp_specs/sac/ spec and on the
+td3, dqn and discrete-SAC specs, the guards and phase timer, routing, and
+`run_sac` end to end on pendulum on the CPU (tests/test_harness.py:139-172's
+tiny spec): progress.csv, snapshots, a full resume that continues the run
+bit for bit, a light resume, policy evaluation from the best snapshot, and
+the CLI in a process without JAX; `run_td3` on pendulum and `run_dqn` on
+cartpole end to end with a full resume; the configurations the launchers
+build from the specs, with the two readings where the port repairs the
+JAX launcher.
 """
 
+import copy
 import csv
+import dataclasses
 import glob
 import json
 import math
@@ -196,16 +202,18 @@ def test_routing_raises_naming_the_roadmap_item(tmp_path):
         run(_variant(tmp_path, env_specs={"env_name": "hopper",
                                           "force_host": True}),
             device="cpu")
-    for env, item in (("cartpole", "2.1"), ("reach2d", "2.5"),
-                      ("pendulum_pixels", "2.7")):
+    for env, item in (("reach2d", "2.5"), ("pendulum_pixels", "2.7")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             run(_variant(tmp_path, env), device="cpu")
+    # an unported device env raises through every trainer's launcher
+    with pytest.raises(NotImplementedError, match="item 2.5"):
+        pexp.EXPERIMENTS["dqn"](_variant(tmp_path, "reach2d"), device="cpu")
     with pytest.raises(ValueError, match="unknown env"):
         run(_variant(tmp_path, "no_such_env"), device="cpu")
     # every JAX experiment name is known; the unported ones raise
     assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
-    with pytest.raises(NotImplementedError, match="item 2.1"):
-        pexp.EXPERIMENTS["td3"](_variant(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.4"):
+        pexp.EXPERIMENTS["mbpo"](_variant(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="item 2.3"):
         pexp.EXPERIMENTS["ppo"](_variant(tmp_path), device="cpu")
     if not torch.cuda.is_available():      # the default device is the GPU
@@ -397,3 +405,202 @@ def test_cli_runs_a_spec_in_a_process_without_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO_JAX_OK" in out.stdout
     assert len(_rows(tmp_path / "cli")) == 1
+
+
+# --- the other off-policy trainers ---------------------------------------
+OFF_POLICY_SPECS = {
+    "td3": ["exp_specs/td3/td3_hopper.yaml",
+            "exp_specs/td3/td3_humanoid.yaml"],
+    "dqn": ["exp_specs/dqn/dqn_cartpole.yaml"],
+    "discrete_sac": ["exp_specs/sac/sac_cartpole_d.yaml"],
+}
+
+
+def test_grad_steps_and_eval_envs_match_jax_on_offpolicy_specs():
+    """K and the evaluator's env count on the td3, dqn and discrete-SAC
+    specs: 8, 8 and 13 gradient steps an iteration, 32 eval envs."""
+    got = {}
+    for algo, paths in OFF_POLICY_SPECS.items():
+        for path in paths:
+            spec = _load(ROOT / path)
+            assert spec["meta_data"]["algorithm"] == algo
+            (v,) = pvariant.build_variants(spec)
+            rl = dict(v["rl_alg_params"])
+            n = int(v["env_specs"]["env_num"])
+            k = pexp._grad_steps_per_iter(rl, n)
+            assert k == jexp._grad_steps_per_iter(rl, n), path
+            mpl = int(rl.get("max_path_length", 1000))
+            assert pexp._num_eval_envs(rl) == max(
+                int(rl.get("num_steps_per_eval", 10_000)) // mpl,
+                int(rl.get("min_eval_episodes", 32))), path
+            got[path] = (n, k, pexp._num_eval_envs(rl))
+    assert got == {"exp_specs/td3/td3_hopper.yaml": (8, 8, 32),
+                   "exp_specs/td3/td3_humanoid.yaml": (8, 8, 32),
+                   "exp_specs/dqn/dqn_cartpole.yaml": (16, 8, 32),
+                   "exp_specs/sac/sac_cartpole_d.yaml": (128, 13, 32)}
+
+
+def _captured(module, name, variant, monkeypatch, **kw):
+    """The algorithm and env that `module.EXPERIMENTS[name]` hands its
+    `_run_off_policy`."""
+    seen = {}
+
+    def capture(algo, vec, rl, logger, seed, **_):
+        seen.update(algo=algo, vec=vec, rl=rl)
+        logger.close()
+
+    monkeypatch.setattr(module, "_run_off_policy", capture)
+    module.EXPERIMENTS[name](variant, **kw)
+    return seen
+
+
+def _spec_variant(path, tmp_path):
+    (v,) = pvariant.build_variants(_load(ROOT / path))
+    v.update(log_dir=str(tmp_path / Path(path).stem), print_to_console=False)
+    return v
+
+
+@pytest.mark.parametrize("name, path", [
+    ("td3", "exp_specs/td3/td3_hopper.yaml"),
+    ("td3", "exp_specs/td3/td3_humanoid.yaml"),
+    ("dqn", "exp_specs/dqn/dqn_cartpole.yaml"),
+    ("ddpg", "exp_specs/td3/td3_hopper.yaml"),
+    ("sac_v", "exp_specs/td3/td3_hopper.yaml"),
+])
+def test_offpolicy_launchers_build_the_jax_configuration(
+        name, path, tmp_path, monkeypatch):
+    """Each launcher's trainer configuration, widths, env and schedule as
+    the JAX launcher builds them from the same variant (ddpg and sac_v on
+    td3_hopper.yaml's constants with their own parameter blocks)."""
+    v = _spec_variant(path, tmp_path)
+    if name == "ddpg":
+        v["ddpg_params"] = {"policy_lr": 3e-4, "soft_target_tau": 0.005}
+    if name == "sac_v":
+        v["sac_params"] = {"alpha": 0.2, "reward_scale": 5.0}
+    want = _captured(jexp, name, copy.deepcopy(v), monkeypatch)
+    got = _captured(pexp, name, copy.deepcopy(v), monkeypatch,
+                    device="cpu")
+    ja, pa = want["algo"], got["algo"]
+    assert dataclasses.asdict(pa.config) == {
+        k: (float(x) if isinstance(x, float) else x)
+        for k, x in dataclasses.asdict(ja.config).items()}
+    assert pa.hidden == (int(v.get("net_size", 256)),) * int(
+        v.get("num_hidden_layers", 2))
+    jenv, penv = want["vec"].env, got["vec"].env
+    assert (type(penv).__name__, penv.observation_size, penv.action_size,
+            penv.discrete, penv.max_episode_steps, got["vec"].num_envs) == (
+        type(jenv).__name__, jenv.observation_size, jenv.action_size,
+        jenv.discrete, jenv.max_episode_steps, want["vec"].num_envs)
+    assert got["rl"] == want["rl"]
+
+
+def test_fault_discrete_sac_reads_its_spec_block(tmp_path, monkeypatch):
+    """Reference fault: the JAX `run_discrete_sac` reads `sac_params`
+    (experiments.py:628) while exp_specs/sac/sac_cartpole_d.yaml writes
+    `discrete_sac_params`, so the JAX package trains it at the defaults.
+    The port reads `discrete_sac_params`, and `sac_params` where only
+    that is given."""
+    path = "exp_specs/sac/sac_cartpole_d.yaml"
+    v = _spec_variant(path, tmp_path)
+    spec = dict(alpha=0.05, reward_scale=1.0, discount=0.95,
+                soft_target_tau=0.005, policy_lr=1e-4, qf_lr=1e-3)
+    assert v["discrete_sac_params"] == spec and "sac_params" not in v
+    jcfg = _captured(jexp, "discrete_sac", copy.deepcopy(v),
+                     monkeypatch)["algo"].config
+    pcfg = _captured(pexp, "discrete_sac", copy.deepcopy(v), monkeypatch,
+                     device="cpu")["algo"].config
+    for k, x in spec.items():
+        assert getattr(pcfg, k) == x, k
+    assert (jcfg.alpha, jcfg.discount, jcfg.policy_lr,
+            jcfg.soft_target_tau) == (1.0, 0.99, 1e-3, 1e-2)
+    # the JAX layout, `sac_params`, is read where it is the only block
+    v2 = copy.deepcopy(v)
+    v2["sac_params"] = v2.pop("discrete_sac_params")
+    pcfg2 = _captured(pexp, "discrete_sac", v2, monkeypatch,
+                      device="cpu")["algo"].config
+    jcfg2 = _captured(jexp, "discrete_sac", copy.deepcopy(v2),
+                      monkeypatch)["algo"].config
+    assert dataclasses.asdict(pcfg2) == dataclasses.asdict(jcfg2)
+    assert pcfg2 == pcfg
+
+
+def test_td3_reads_the_policy_noise_names_of_td3_humanoid(tmp_path,
+                                                           monkeypatch):
+    """exp_specs/td3/td3_humanoid.yaml writes `policy_noise` /
+    `policy_noise_clip`, which the JAX `run_td3` does not read
+    (experiments.py:550-552); the port reads them, and the `target_*`
+    names win where both are given.  The spec's values are the defaults,
+    so nothing differs there today."""
+    v = _spec_variant("exp_specs/td3/td3_humanoid.yaml", tmp_path)
+    v["env_specs"]["env_name"] = "pendulum"      # a cheap device env
+    v["td3_params"].update(policy_noise=0.3, policy_noise_clip=0.4)
+    cfg = _captured(pexp, "td3", copy.deepcopy(v), monkeypatch,
+                    device="cpu")["algo"].config
+    jcfg = _captured(jexp, "td3", copy.deepcopy(v), monkeypatch)[
+        "algo"].config
+    assert (cfg.target_policy_noise, cfg.target_policy_noise_clip) == (
+        0.3, 0.4)
+    assert (jcfg.target_policy_noise, jcfg.target_policy_noise_clip) == (
+        0.2, 0.5)
+    v["td3_params"].update(target_policy_noise=0.25,
+                           target_policy_noise_clip=0.45)
+    cfg = _captured(pexp, "td3", v, monkeypatch, device="cpu")[
+        "algo"].config
+    assert (cfg.target_policy_noise, cfg.target_policy_noise_clip) == (
+        0.25, 0.45)
+
+
+def _tiny_offpolicy(name, env, log_dir, num_epochs=2, **extra):
+    """The tiny schedule of `_tiny` for another trainer (4 envs, 32 x 1
+    nets, K = 4)."""
+    v = _tiny(log_dir, num_epochs)
+    v.pop("sac_params")
+    v["env_specs"]["env_name"] = env
+    v.update(extra)
+    return v
+
+
+@pytest.mark.parametrize("name, env, metric", [
+    ("td3", "pendulum", "trainer/policy_loss"),
+    ("dqn", "cartpole", "trainer/epsilon"),
+])
+def test_offpolicy_run_and_full_resume_bit_for_bit(name, env, metric,
+                                                   tmp_path):
+    """2 epochs straight through, and 1 epoch resumed in full to 2: the
+    end states equal bit for bit (TD3's n_train_steps and three targets,
+    DQN's two counters and its int32 ring among them), progress.csv rows
+    equal but for the clocks, every value finite."""
+    run = pexp.EXPERIMENTS[name]
+    a = run(_tiny_offpolicy(name, env, tmp_path / "a"), device="cpu")
+    run(_tiny_offpolicy(name, env, tmp_path / "b", 1), device="cpu")
+    b = run(_tiny_offpolicy(name, env, tmp_path / "b",
+                            load_params=str(tmp_path / "b")), device="cpu")
+    assert tree_diff(to_tree(a), to_tree(b)) == []
+    rows_a, rows_b = _rows(tmp_path / "a"), _rows(tmp_path / "b")
+    assert len(rows_a) == len(rows_b) == 2 and metric in rows_a[0]
+    for ra, rb in zip(rows_a, rows_b):
+        assert all(math.isfinite(float(x)) for x in ra.values())
+        assert {k: x for k, x in ra.items() if k not in CLOCKS} == {
+            k: x for k, x in rb.items() if k not in CLOCKS}
+    assert [float(r["TotalEnvSteps"]) for r in rows_a] == [96.0, 160.0]
+    state = a.algo_state
+    if name == "td3":
+        assert state.n_train_steps == 2 * 16 * 4
+        assert state.policy_opt.count == 2 * 16 * 4 // 2
+    else:
+        assert a.replay.data["action"].dtype == torch.int32
+        assert state.n_train_steps == 2 * 16 * 4
+        assert state.n_act_steps == 2 * 16 * 4      # env steps of training
+
+
+@pytest.mark.parametrize("name, env", [
+    ("td3", "pendulum"), ("ddpg", "pendulum"), ("sac_v", "pendulum"),
+    ("dqn", "cartpole"), ("discrete_sac", "cartpole")])
+def test_offpolicy_launchers_default_to_the_card(name, env, tmp_path):
+    """Without `device` a launcher runs on cuda: on a machine without a
+    card it raises, and nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pexp.EXPERIMENTS[name](_tiny_offpolicy(name, env, tmp_path / name))
+    assert not (tmp_path / name).exists()

@@ -43,7 +43,8 @@ WIDTHS = {"hopper": 11, "ant": 105, "ant_trunc_obs": 27, "humanoid": 348,
           "inverteddoublependulum": 9, "invertedpendulum": 4,
           "walker": 17, "halfcheetah": 17}
 # the classic-control envs, held against JAX in test_torch_envs_classic.py
-CLASSIC = {"pendulum", "mountain"}
+# (pendulum, mountain) and test_torch_cartpole_nstep.py (cartpole)
+CLASSIC = {"pendulum", "mountain", "cartpole"}
 
 
 def _assert_scaled_close(got, want, what=""):
