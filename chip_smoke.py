@@ -139,7 +139,31 @@ exits non-zero on any failure; no phase catches its own error.
      must hold the spec's alpha 0.05 and discount 0.95), and DDPG and
      SAC-V on phase 11's copy with td3_params' values under ddpg_params /
      sac_params (1 epoch; K1 exactly 1675 each); cartpole launches no
-     kernel; for each, a step's wall ms, device operations and device ms.
+     kernel; for each, a step's wall ms, device operations and device ms;
+ 13. PPO through the launcher: exp_specs/ppo/ppo_hopper.yaml copied under
+     build/chip_smoke_ppo/ with only num_epochs (200 -> 2) and
+     num_steps_per_epoch (10000 -> 2048, one iteration of T = 128 steps of
+     16 envs) cut, through `EXPERIMENTS["ppo"]`: 256 x 2 policy and value
+     nets, minibatch 64, 10 passes, obs_norm, the 1000-step evaluation.
+     Launch counts exact (K1 2 x (128 + 1000) = 2256; K2 = K3 = K4 = 0),
+     every metric finite, TotalEnvSteps 2048 / 4096, the moments' count
+     1e-4 + 4096 (float32), the run's 'last' snapshot restored into a fresh
+     runner bit for bit; K1 at B = 16 on the end states against its plain
+     version; the rollout's and the update's ms, one minibatch step's wall
+     ms, device operations and device ms, the snapshot's size, save and
+     load time, the spec's estimated wall time at 200 epochs;
+ 14. the rnn discriminator through the launcher: exp_specs/gail/
+     gail_hopper.yaml copied under build/chip_smoke_gail_rnn/ with
+     `disc_type: rnn` (T = 16, a 2-layer bidirectional GRU of width 128)
+     and num_epochs 2, num_steps_per_epoch 40 (5 iterations an epoch).
+     Run A: 2 epochs; run B: 1 epoch, then a full resume.  Launch counts
+     exact (K1 2635 / 1630 / 1005; K2 = K3 = K4 = 0), B's end state equal
+     to A's bit for bit, every metric finite (gail2 rewards <= 0); K1 at
+     B = 8 and 32 on run A's end states against its plain version; one rnn
+     discriminator step on the card against the same step on a CPU copy,
+     same state and draws, at rtol 2e-4, atol 2e-5; a discriminator step's
+     and a policy step's wall ms, device operations and device ms, and the
+     share of masked steps in the policy batches.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -391,10 +415,11 @@ def step_costs(fn, reps: int = 20, warmup: int = 3, traced: int = 3
             sum(e.device_time for e in ops) / traced / 1e3)
 
 
-def cut_spec(spec_path: str, out: Path, cut: dict) -> tuple:
+def cut_spec(spec_path: str, out: Path, cut: dict,
+             constants: dict | None = None) -> tuple:
     """A copy of `spec_path` under `out` with `cut` set in its
-    rl_alg_params, and its one variant.  Returns (variant, the spec's
-    own rl_alg_params)."""
+    rl_alg_params (and `constants` among its constants), and its one
+    variant.  Returns (variant, the spec's own rl_alg_params)."""
     import yaml
 
     from ilswiss_tpu_torch.launchers.variant import build_variants
@@ -403,6 +428,7 @@ def cut_spec(spec_path: str, out: Path, cut: dict) -> tuple:
         spec = yaml.safe_load(f)
     full = dict(spec["constants"]["rl_alg_params"])
     spec["constants"]["rl_alg_params"].update(cut)
+    spec["constants"].update(constants or {})
     path = out / Path(spec_path).name
     with open(path, "w") as f:
         yaml.safe_dump(spec, f)
@@ -470,11 +496,12 @@ def snapshot_times(what: str, path, runner, into, tree) -> tuple:
 
 
 def k1_on_end_states(what: str, runner, n: int, k1_step, k1_check,
-                     seed: int) -> tuple:
+                     seed: int, sizes: tuple | None = None) -> tuple:
     """K1 at the path's batches, `n` envs (warmup and training) and 4n (the
-    32-env evaluator), from the runner's end states and actions in
-    [-1, 1]: held against its plain version (`k1_check`, phase 3's check)
-    and timed.  Returns ({B: ms}, {B: max |err|})."""
+    32-env evaluator) unless `sizes` names them, from the runner's end
+    states and actions in [-1, 1]: held against its plain version
+    (`k1_check`, phase 3's check) and timed.  Returns ({B: ms},
+    {B: max |err|})."""
     import torch
 
     from ilswiss_tpu_torch.envs.locomotion import HopperDevice, _model
@@ -484,7 +511,7 @@ def k1_on_end_states(what: str, runner, n: int, k1_step, k1_check,
     dev = runner.env_state.obs.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     k1_ms, k1_err = {}, {}
-    for nb in (n, 4 * n):
+    for nb in sizes or (n, 4 * n):
         q, qd, f0 = (x.repeat(nb // n, 1).t().contiguous()
                      for x in runner.env_state.internal)
         ctrl = 2 * torch.rand((len(pm.act_dof), nb), device=dev,
@@ -1127,6 +1154,378 @@ def other_trainers_phase(card: str, counters: dict) -> dict:
                             launches=e["launches"], epoch=e["row"],
                             seconds=e["seconds"])
     return result
+
+
+# Phase 13: PPO through the port's launcher, cut in length only
+PPO_SPEC = "exp_specs/ppo/ppo_hopper.yaml"
+PPO_CUT = {"num_epochs": 2, "num_steps_per_epoch": 2048}
+PPO_K1 = 2256            # K1 launches of the cut spec: 2 x (128 + 1000)
+PPO_METRICS = ["vf_loss", "pg_loss", "adv_mean_abs", "value_mean",
+               "rollout_reward_mean"]
+
+
+@contextlib.contextmanager
+def kept_loops():
+    """Inside: every on-policy loop a launcher initializes is appended to
+    the yielded list (for timings after the run)."""
+    from ilswiss_tpu_torch.runtime import onpolicy
+
+    loops = []
+    init = onpolicy.OnPolicyLoop.init
+
+    def keep(self, *args, **kwargs):
+        loops.append(self)
+        return init(self, *args, **kwargs)
+
+    onpolicy.OnPolicyLoop.init = keep
+    try:
+        yield loops
+    finally:
+        onpolicy.OnPolicyLoop.init = init
+
+
+def ppo_phase(card: str, counters: dict, k1_check) -> dict:
+    """Phase 13: a copy of PPO_SPEC under build/chip_smoke_ppo/ with only
+    PPO_CUT changed (num_epochs 200 -> 2, num_steps_per_epoch 10000 ->
+    2048: one iteration of T = 128 steps of 16 envs an epoch), through
+    `build_variants` and `EXPERIMENTS["ppo"]` on the card: PPO 256 x 2 on
+    hopper, minibatch 64, 10 passes, obs_norm, the 1000-step evaluation on
+    the 16 training envs.  Fails unless K1 launched once per control step
+    of the rollouts and evaluations (K2, K3 and K4 never), progress.csv
+    holds the trainer's metrics and every value finite with TotalEnvSteps
+    2048 / 4096, the moments' count is 1e-4 + 2 x 2048 (in float32), the
+    run's 'last' snapshot restores into a fresh runner bit for bit, and K1
+    agrees with its plain version on the end states at B = 16
+    (`k1_check`, phase 3's check).  Times the iteration's rollout and
+    update, one minibatch step (wall, device operations and device time),
+    a full snapshot's save and load, and estimates the spec's wall time
+    at full length."""
+    import shutil
+
+    import torch
+
+    from ilswiss_tpu_torch.models.distributions import normal_log_prob
+    from ilswiss_tpu_torch.runtime.checkpoint import (
+        restore_checkpoint, to_tree,
+    )
+    from ilswiss_tpu_torch.testing import tree_diff
+
+    out = ROOT / "build" / "chip_smoke_ppo"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    variant, full = cut_spec(PPO_SPEC, out, PPO_CUT)
+    rl, p = variant["rl_alg_params"], variant["ppo_params"]
+    n, T = variant["env_specs"]["env_num"], p["rollout_length"]
+    iters = rl["num_steps_per_epoch"] // (T * n)
+    evals = rl["max_path_length"]
+    want = {"planar_control_step": 2 * (iters * T + evals),
+            "planar_forward": 0, "fused_sac_chain": 0,
+            "fused_policy_forward": 0, "pgs_solve": 0}
+    if want["planar_control_step"] != PPO_K1:
+        fail(f"PPO: the spec's schedule is not phase 13's: {iters} "
+             f"iterations an epoch, {want}")
+    with kept_loops() as loops:
+        runner, launches, seconds = run_spec("ppo", variant, out / "a",
+                                             counters, 2)
+    check_launches("PPO", (("A (2 epochs)", launches, want),))
+    loop = loops[-1]
+    ppo = loop.algo
+    rows = progress_rows(out / "a")
+    need = [f"trainer/{k}" for k in PPO_METRICS] + EVAL_COLUMNS
+    if len(rows) != 2 or not set(need) <= set(rows[0]):
+        fail(f"PPO: progress.csv has {len(rows)} rows, columns "
+             f"{list(rows[0]) if rows else []}")
+    steps = [float((e + 1) * iters * T * n) for e in range(2)]
+    if [float(r["TotalEnvSteps"]) for r in rows] != steps:
+        fail(f"PPO: TotalEnvSteps {[r['TotalEnvSteps'] for r in rows]}, "
+             f"expected {steps}")
+    if not all(math.isfinite(float(v)) for r in rows for v in r.values()):
+        fail("PPO: a value of progress.csv is not finite")
+    epochs = [{k: float(r[k]) for k in need if k != "TotalEnvSteps"}
+              for r in rows]
+    for ep, e in enumerate(epochs):
+        print(f"PPO epoch {ep}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e.items()) + f", on {card}")
+    print(f"PPO run: {seconds:.1f} s for the call (2 epochs), on {card}")
+
+    # the moments merged 2 x 2048 rollout rows, counted in float32
+    count = torch.tensor(1e-4, dtype=torch.float32)
+    for _ in range(2 * iters):
+        count = count + float(T * n)
+    if float(runner.obs_rms.count) != float(count):
+        fail(f"PPO: the moments count {float(runner.obs_rms.count)} "
+             f"rows, expected {float(count)}")
+    print(f"PPO moments: count {float(runner.obs_rms.count)} (1e-4 + "
+          f"{2 * iters * T * n} rows in float32), mean |mean| "
+          f"{float(runner.obs_rms.mean.abs().mean()):.4g}, mean var "
+          f"{float(runner.obs_rms.var.mean()):.4g}")
+
+    # the run's own 'last' snapshot, restored into a fresh runner
+    tree = to_tree(runner)
+    fresh = loop.init(variant.get("seed", 0) + 7)
+    restore_checkpoint(str(out / "a" / "checkpoints" / "last"), fresh)
+    bad = tree_diff(tree, to_tree(fresh))
+    if bad:
+        fail(f"PPO: the 'last' snapshot restored into a fresh runner "
+             f"differs in {bad[:10]}")
+    print("PPO 'last' snapshot: restored into a fresh runner, bit for bit "
+          "(both networks, both Adams' moments and counts, the moments, "
+          "the env state, the noise generator)")
+    size, save_s, load_s = snapshot_times("PPO", out / "snapshot", runner,
+                                          loop.init(11), tree)
+    print(f"PPO full snapshot: {size:.2f} MiB on disk, save {save_s:.3f} s, "
+          f"load {load_s:.3f} s, on {card}")
+    k1_ms, k1_err = k1_on_end_states("PPO", runner, n,
+                                     counters["planar_control_step"],
+                                     k1_check, 19, sizes=(n,))
+
+    # an iteration's two halves, on the end state (read no more after
+    # this): the rollout (T acting steps and the moments) and the update
+    # (GAE, 10 passes of 32 minibatches), host clock, synchronized
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), result
+
+    rollout_ms, (_, rollout, _) = timed(lambda: loop.rollout(runner))
+    perms = ppo.train_noise(runner.noise, T * n)[0]
+    update_ms, _ = timed(lambda: ppo.train_step(runner.algo_state, rollout,
+                                                perms))
+    # one minibatch step (the value step, then the policy step) on 64
+    # rows of the rollout
+    pick = perms[0][:p["mini_batch_size"]]
+    flat = lambda x: x.reshape((T * n,) + x.shape[2:])[pick]  # noqa: E731
+    with torch.no_grad():
+        mean, log_std = runner.algo_state.policy(flat(rollout["obs"]))
+        batch = {"obs": flat(rollout["obs"]),
+                 "action": flat(rollout["action"]),
+                 "return": flat(rollout["reward"]),
+                 "adv": torch.randn_like(flat(rollout["reward"])),
+                 "fixed_logp": normal_log_prob(
+                     mean, log_std, flat(rollout["action"]))[..., 0],
+                 "fixed_v": runner.algo_state.vf(
+                     flat(rollout["obs"]))[..., 0]}
+    mb_ms, mb_ops, mb_dev_ms = step_costs(
+        lambda: ppo.minibatch_step(runner.algo_state, batch))
+    n_mb = (T * n) // p["mini_batch_size"] * p["update_epoch"]
+    it_s = sum(e["TrainTime"] for e in epochs) / (len(epochs) * iters)
+    eval_s = sum(e["EvalTime"] for e in epochs) / len(epochs)
+    print(f"PPO iteration: TrainTime {1e3 * it_s:.1f} ms (mean of the 2 "
+          f"epochs); measured apart: rollout {rollout_ms:.1f} ms ({T} "
+          f"control steps, K1 at B = {n} {k1_ms[n]:.4f} ms each), update "
+          f"{update_ms:.1f} ms ({n_mb} minibatch steps); one minibatch "
+          f"step {mb_ms:.3f} ms of wall time, {mb_ops:.0f} device "
+          f"operations, {mb_dev_ms:.3f} ms of device time; the device "
+          f"busy for about {(T * k1_ms[n] + n_mb * mb_dev_ms) / (rollout_ms + update_ms):.1%} "
+          f"of the two (K1 and the minibatch steps' device time); on {card}")
+    full_iters = max(1, full["num_steps_per_epoch"] // (T * n))
+    full_h = (it_s * full_iters + eval_s) * full["num_epochs"] / 3600
+    print(f"PPO spec at full length ({full['num_epochs']} epochs of "
+          f"{full_iters} iterations and a {evals}-step evaluation each), at "
+          f"these rates: {full_h:.2f} h, on {card}")
+    return {"launches": launches, "k1_ms": k1_ms, "k1_err": k1_err,
+            "rollout_ms": rollout_ms, "update_ms": update_ms,
+            "minibatch_ms": mb_ms, "minibatch_ops": mb_ops,
+            "minibatch_device_ms": mb_dev_ms, "iteration_s": it_s,
+            "eval_s": eval_s, "snapshot_mib": size, "save_s": save_s,
+            "load_s": load_s, "full_spec_hours": full_h, "epochs": epochs,
+            "seconds": seconds}
+
+
+# Phase 14: the rnn discriminator through the launcher: GAIL_SPEC with
+# disc_type rnn (the JAX defaults: T = 16, gru, 2 layers, bidirectional),
+# cut in length further than phase 10 (see rnn_gail_phase)
+RNN_GAIL_CUT = {"num_epochs": 2, "num_steps_per_epoch": 40}
+RNN_GAIL_K1 = [2635, 1630, 1005]     # runs A, B, B's resume
+
+
+class ReplayedDraws:
+    """`Noise`'s replay and interpolation draws, answered from a list of
+    (kind, CPU tensor) in order, on `device`: the same draws for a step
+    on the card and on the CPU."""
+
+    def __init__(self, draws, device):
+        self.draws, self.device = list(draws), device
+
+    def _next(self, kind):
+        got, value = self.draws.pop(0)
+        if got != kind:
+            fail(f"drew {kind} where the replayed draws hold {got}")
+        return value.to(self.device)
+
+    def replay(self, n):
+        return self._next("replay")
+
+    def interpolation(self, n):
+        return self._next("interpolation")
+
+
+def rnn_gail_phase(card: str, counters: dict, k1_check) -> dict:
+    """Phase 14: a copy of GAIL_SPEC under build/chip_smoke_gail_rnn/ with
+    `disc_type: rnn` and RNN_GAIL_CUT (num_epochs 162 -> 2,
+    num_steps_per_epoch 10000 -> 40: 5 iterations of 8 discriminator and
+    8 SAC steps an epoch, shorter than phase 10's 50: an rnn iteration
+    takes about 2 s, and the phase stays near a minute), through
+    `EXPERIMENTS["adv_irl"]` on the card:
+    the spec's widths (SAC 256 x 2, batch 256, 8 envs, a 20k ring) with
+    a 2-layer bidirectional GRU discriminator of width 128 over windows of
+    16 steps (16 windows a step).  Run A: 2 epochs; run B: 1 epoch, then
+    a full resume (`straight_and_resumed`: K1 2635 / 1630 / 1005, K2 =
+    K3 = K4 = 0, B bit-equal to A, every metric finite, gail2 rewards
+    <= 0).  K1 at B = 8 and 32 on run A's end states against its plain
+    version (phase 3's check).  One rnn `_disc_update` from run B's
+    1-epoch state on the card and on a CPU copy, with the same draws,
+    must agree at rtol 2e-4, atol 2e-5 (parameters, Adam moments,
+    metrics).  Times a discriminator step and a policy step (wall, device
+    operations and device time) and reads the share of masked steps in
+    the policy batches of run A's ring."""
+    import os
+    import shutil
+
+    import torch
+
+    from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL
+    from ilswiss_tpu_torch.algorithms.sac import SAC
+    from ilswiss_tpu_torch.data.replay import (
+        ReplayState, replay_sample_window,
+    )
+    from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
+    from ilswiss_tpu_torch.runtime.checkpoint import restore_into, to_tree
+    from ilswiss_tpu_torch.runtime.loop import Noise
+
+    os.chdir(ROOT)
+    out = ROOT / "build" / "chip_smoke_gail_rnn"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    variant, full = cut_spec(GAIL_SPEC, out, RNN_GAIL_CUT,
+                             {"disc_type": "rnn"})
+    want = [k1_want(variant, e, w, True)["planar_control_step"]
+            for e, w in ((2, True), (1, True), (1, False))]
+    if want != RNN_GAIL_K1:
+        fail(f"rnn GAIL: the spec's launch counts are not phase 14's: "
+             f"{want}")
+    r = straight_and_resumed("rnn GAIL", "adv_irl", variant, out, counters,
+                             card, True, GAIL_METRICS)
+    a, algo = r["a"], r["algo"]
+    cfg = algo.config
+    disc = a.algo_state.disc
+    if not (isinstance(disc, RNNDisc) and disc.cell_f0.features == 128
+            and (cfg.disc_traj_len, cfg.disc_rnn_cell, disc.num_layers,
+                 disc.bidirectional) == (16, "gru", 2, True)):
+        fail(f"rnn GAIL: the discriminator is {type(disc).__name__} with "
+             f"{cfg}")
+    for e in r["rows"]:
+        if e["trainer/disc_rew_mean"] > 0:
+            fail(f"rnn GAIL: gail2 rewards are log D <= 0, a mean reads "
+                 f"{e['trainer/disc_rew_mean']}")
+    n = variant["env_specs"]["env_num"]
+    k1_ms, k1_err = k1_on_end_states("rnn GAIL", a, n,
+                                     counters["planar_control_step"],
+                                     k1_check, 23)
+
+    # one discriminator step on the card and on a CPU copy of run B's
+    # 1-epoch state and ring, from the same draws
+    T = cfg.disc_traj_len
+    n_w = max(1, cfg.disc_optim_batch_size // T)
+    gen = torch.Generator().manual_seed(29)
+    draws = [("replay", torch.rand(n_w, generator=gen)),
+             ("replay", torch.rand(n_w, generator=gen)),
+             ("interpolation", torch.rand((n_w, 1), generator=gen))]
+    card_state = r["b1"].algo_state
+    sac = algo.policy_trainer
+    cpu_algo = AdvIRL(algo.obs_size, algo.action_size,
+                      SAC(sac.obs_size, sac.action_size, sac.config,
+                          net_size=sac.hidden[0],
+                          num_hidden_layers=len(sac.hidden), device="cpu"),
+                      algo.expert_replay, cfg)
+    cpu_state = restore_into(cpu_algo.init(0), to_tree(card_state))
+    ring = r["b1"].replay
+    cpu_ring = ReplayState(data={k: v.cpu() for k, v in ring.data.items()},
+                           ep_id=ring.ep_id.cpu(), ptr=ring.ptr,
+                           size=ring.size, env_ep=ring.env_ep.cpu())
+    _, m_card = algo._disc_update(card_state, ring,
+                                  ReplayedDraws(draws, algo.device))
+    _, m_cpu = cpu_algo._disc_update(cpu_state, cpu_ring,
+                                     ReplayedDraws(draws, "cpu"))
+    got = to_tree({"disc": card_state.disc, "opt": card_state.disc_opt,
+                   "metrics": m_card})
+    ref = to_tree({"disc": cpu_state.disc, "opt": cpu_state.disc_opt,
+                   "metrics": m_cpu})
+    worst = 0.0
+
+    def compare(g, w, path):
+        nonlocal worst
+        if isinstance(w, dict):
+            for k in w:
+                compare(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, list):
+            for i, (gi, wi) in enumerate(zip(g, w)):
+                compare(gi, wi, f"{path}[{i}]")
+        elif isinstance(w, torch.Tensor):
+            if not torch.allclose(g, w, rtol=2e-4, atol=2e-5):
+                fail(f"rnn GAIL: the card's discriminator step differs "
+                     f"from the CPU's in {path} by "
+                     f"{float((g - w).abs().max()):.3g}")
+            worst = max(worst, float((g - w).abs().max()))
+        elif g != w:
+            fail(f"rnn GAIL: {path} is {g} on the card, {w} on the CPU")
+
+    compare(got, ref, "")
+    print(f"rnn GAIL discriminator step, card vs CPU from the same state "
+          f"and draws: parameters, Adam moments and metrics within rtol "
+          f"2e-4, atol 2e-5, max |err| {worst:.3g}")
+
+    # the update steps' costs, on run B's end state (not read again)
+    b = r["b"]
+    noise = Noise(123, a.env_state.obs.device)
+    disc_ms, disc_ops, disc_dev_ms = step_costs(
+        lambda: algo._disc_update(b.algo_state, b.replay, noise), reps=10)
+    policy_ms, policy_ops, policy_dev_ms = step_costs(
+        lambda: algo._policy_update(b.algo_state, b.replay, noise), reps=10)
+    print(f"rnn GAIL update steps: a discriminator step {disc_ops:.0f} "
+          f"device operations, {disc_dev_ms:.3f} ms of device time in "
+          f"{disc_ms:.3f} ms of wall time; a policy step {policy_ops:.0f}, "
+          f"{policy_dev_ms:.3f} ms in {policy_ms:.3f} ms; on {card}")
+
+    # the masked steps of the policy batches (rewards zeroed, SAC trains
+    # on them): run A's ring, 64 batches of the policy step's windows
+    n_pw = max(1, cfg.policy_optim_batch_size // T)
+    shares = [1.0 - float(replay_sample_window(
+        a.replay, noise.replay(n_pw), T)["valid"].float().mean())
+        for _ in range(64)]
+    masked = sum(shares) / len(shares)
+    print(f"rnn GAIL policy batches: {masked:.2%} of the {n_pw * T} steps "
+          f"are masked (min {min(shares):.2%}, max {max(shares):.2%}, 64 "
+          f"batches of run A's ring, {a.replay.size} rows)")
+
+    loops = cfg.num_update_loops_per_train_call
+    iters = variant["rl_alg_params"]["num_steps_per_epoch"] // n
+    it_ms = 1e3 * sum(e["TrainTime"] for e in r["rows"]) / (
+        len(r["rows"]) * iters)
+    parts = k1_ms[n] + loops * (disc_ms + policy_ms)
+    busy = k1_ms[n] + loops * (disc_dev_ms + policy_dev_ms)
+    eval_s = sum(e["EvalTime"] for e in r["rows"]) / len(r["rows"])
+    print(f"rnn GAIL iteration: {it_ms:.3f} ms (mean over the 4 epochs); "
+          f"K1 at B = {n}: {k1_ms[n]:.4f} ms, {loops} discriminator steps "
+          f"x {disc_ms:.3f} ms, {loops} policy steps x {policy_ms:.3f} ms: "
+          f"{parts / it_ms:.1%} of it; the device busy for about "
+          f"{busy / it_ms:.1%} of it; on {card}")
+    full_iters = full["num_steps_per_epoch"] // n
+    full_h = (it_ms * 1e-3 * full_iters + eval_s) * full["num_epochs"] / 3600
+    print(f"rnn GAIL spec at full length ({full['num_epochs']} epochs of "
+          f"{full_iters} iterations and an evaluation each), at these "
+          f"rates: {full_h:.2f} h, on {card}")
+    return {"launches": r["launches"],
+            "resumed_launches": r["resumed_launches"], "k1_ms": k1_ms,
+            "k1_err": k1_err, "card_vs_cpu_err": worst,
+            "disc_step_ms": disc_ms, "disc_ops": disc_ops,
+            "disc_device_ms": disc_dev_ms, "policy_step_ms": policy_ms,
+            "policy_ops": policy_ops, "policy_device_ms": policy_dev_ms,
+            "masked_share": masked, "iteration_ms": it_ms,
+            "device_busy_share": busy / it_ms, "full_spec_hours": full_h,
+            "epochs": r["rows"], "seconds": r["seconds"]}
 
 
 def main() -> int:
@@ -1852,6 +2251,10 @@ def main() -> int:
     td3 = td3_phase(card, counters, k1_step_check)
     # ---- 12. DQN, discrete SAC, DDPG, SAC-V through the launcher ----------
     others = other_trainers_phase(card, counters)
+    # ---- 13. PPO: ppo_hopper.yaml through the launcher --------------------
+    ppo = ppo_phase(card, counters, k1_step_check)
+    # ---- 14. the rnn discriminator: gail_hopper.yaml, save and resume -----
+    gail_rnn = rnn_gail_phase(card, counters, k1_step_check)
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -1875,7 +2278,12 @@ def main() -> int:
          "gail": {f"b{b}": {"ms": v, "max_abs_err": gail["k1_err"][b]}
                   for b, v in gail["k1_ms"].items()},
          "td3": {f"b{b}": {"ms": v, "max_abs_err": td3["k1_err"][b]}
-                 for b, v in td3["k1_ms"].items()}},
+                 for b, v in td3["k1_ms"].items()},
+         "ppo": {f"b{b}": {"ms": v, "max_abs_err": ppo["k1_err"][b]}
+                 for b, v in ppo["k1_ms"].items()},
+         "gail_rnn": {f"b{b}": {"ms": v,
+                                "max_abs_err": gail_rnn["k1_err"][b]}
+                      for b, v in gail_rnn["k1_ms"].items()}},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
@@ -1929,13 +2337,14 @@ def main() -> int:
     # K1's count is the hopper main path's (its control-step mode), K4's
     # the ant main path's; K2 and K3 run on all three, and the line carries
     # the ant path's; `launches_by_path` adds the launcher's run A, the
-    # GAIL launcher's run A, TD3's and DQN's run A and the 1-epoch runs of
-    # DDPG, SAC-V and discrete SAC
+    # GAIL launcher's run A, TD3's and DQN's run A, the 1-epoch runs of
+    # DDPG, SAC-V and discrete SAC, PPO's run and the rnn GAIL's run A
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
              "gail": gail["launches"], "td3": td3["launches"],
              **{name: others[name]["launches"]
-                for name in ("ddpg", "sac_v", "dqn", "discrete_sac")}}
+                for name in ("ddpg", "sac_v", "dqn", "discrete_sac")},
+             "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -25,26 +25,43 @@ from rewards the current discriminator synthesizes.
     `num_policy_updates_per_loop_iter` inner-trainer steps), the metrics
     averaged per loop and then over the loops.
 
+The trajectory-window (rnn) discriminator (`disc_type: rnn`,
+models/rnn_discriminators.py) scores windows of T = `disc_traj_len`
+steps of one env (`replay_sample_window`), per step:
+  - a discriminator step takes n_w = max(1, disc_optim_batch_size // T)
+    windows from the demos and n_w from the ring, zeroes the inputs of
+    steps outside `valid` (past the window's episode), interpolates per
+    window (eps [n_w, 1, 1]), takes the penalty's gradient norm once per
+    window over T x D, and averages BCE and accuracy over the valid
+    steps (divided by max(sum(valid), 1)), the targets broadcast over T;
+  - a policy step takes n_w = policy_optim_batch_size // T windows of the
+    ring, rewards each step from the eval-mode logits, zeroes the rewards
+    outside `valid`, and trains the inner SAC on the n_w * T flattened
+    steps; `policy_optim_batch_size_from_expert` is not used, and
+    `reward_norm` leaves the masked steps out of its moments.  As in the
+    JAX package, the masked steps keep their obs, action and next_obs and
+    SAC trains on them (ROADMAP.md section 3).
+
 Draws.  Every random number comes from the runner's `noise`
 (runtime/loop.py::Noise), in this order, so a test can replay the JAX
 package's draws:
   - each discriminator step: `replay(disc_optim_batch_size)` for the
     expert rows, `replay(disc_optim_batch_size)` for the policy rows,
     `interpolation(disc_optim_batch_size)` for eps (drawn with the penalty
-    off too);
+    off too); rnn: `replay(n_w)`, `replay(n_w)`, `interpolation(n_w)`;
   - each policy step: `replay(policy_optim_batch_size - n_exp)` for the
     policy rows, `replay(n_exp)` for the expert rows when
     `policy_optim_batch_size_from_expert` n_exp > 0, then
-    `train((policy_optim_batch_size, action_size))`, SAC's two normals.
+    `train((policy_optim_batch_size, action_size))`, SAC's two normals;
+    rnn: `replay(n_w)`, then `train((n_w * T, action_size))`.
 The JAX package derives the same draws from its keys (adv_irl.py:259-262,
 :372-393, :451-483).
 
 As the port's SAC, the update runs in place: the discriminator's
 parameters, running averages and Adam moments, and the inner state, are
 updated in their tensors, and the same state object is returned.  The
-trajectory-window (rnn) discriminator is ROADMAP.md section 1 item 2.2's
-remaining part, the image (cnn) one and frozen-encoder features item 2.7:
-both raise.
+image (cnn) discriminator and frozen-encoder features are ROADMAP.md
+section 1 item 2.7: both raise.
 """
 
 from __future__ import annotations
@@ -56,8 +73,11 @@ import torch
 import torch.nn.functional as F
 
 from ilswiss_tpu_torch.algorithms.sac import Adam
-from ilswiss_tpu_torch.data.replay import ReplayState, replay_sample
+from ilswiss_tpu_torch.data.replay import (
+    ReplayState, replay_sample, replay_sample_window,
+)
 from ilswiss_tpu_torch.models.discriminators import MLPDisc
+from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
 
 MODES = ("airl", "gail", "gail2", "fairl")
 # the discriminator's init draws come from a CPU generator of their own,
@@ -90,13 +110,17 @@ class AdvIRLConfig:
     disc_hid_act: str = "relu"
     disc_use_bn: bool = True
     disc_clamp_magnitude: float = 10.0
-    # mlp only; rnn (item 2.2) and cnn (item 2.7) raise
+    # mlp | rnn (trajectory windows); cnn (item 2.7) raises
     disc_type: str = "mlp"
+    disc_traj_len: int = 16          # rnn window length T
+    disc_rnn_cell: str = "gru"
+    disc_rnn_layers: int = 2
+    disc_rnn_bidirectional: bool = True
 
 
 @dataclass
 class AdvIRLState:
-    disc: MLPDisc            # parameters and BatchNorm running averages
+    disc: MLPDisc | RNNDisc  # parameters (and BatchNorm running averages)
     disc_opt: Adam
     policy: Any              # the inner trainer's state (SACState)
     expert: ReplayState      # the demos, a full buffer
@@ -127,17 +151,13 @@ class AdvIRL:
                              f"known: {MODES}")
         not_ported = "is not ported to ilswiss_tpu_torch yet: ROADMAP.md " \
             "section 1 item"
-        if config.disc_type == "rnn":
-            raise NotImplementedError(
-                f"the trajectory-window (rnn) discriminator "
-                f"(models/rnn_discriminators.py, replay_sample_window) "
-                f"{not_ported} 2.2")
         if config.disc_type == "cnn" or feature_fn is not None:
             raise NotImplementedError(
                 f"the visual AdvIRL (cnn discriminator, encoder features) "
                 f"{not_ported} 2.7")
-        if config.disc_type != "mlp":
+        if config.disc_type not in ("mlp", "rnn"):
             raise ValueError(f"unknown disc_type {config.disc_type!r}")
+        self.rnn = config.disc_type == "rnn"
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
@@ -151,18 +171,25 @@ class AdvIRL:
     def init(self, seed: int) -> AdvIRLState:
         """Fresh state: the inner trainer's from `seed`, the
         discriminator's from a CPU generator seeded `seed +
-        DISC_SEED_OFFSET` (flax Dense's init: lecun_normal kernels, zero
-        biases), and a private copy of the demos on the trainer's
-        device."""
+        DISC_SEED_OFFSET` (flax's inits: lecun_normal kernels, orthogonal
+        recurrent kernels, zero biases), and a private copy of the demos on
+        the trainer's device."""
         cfg = self.config
         policy = self.policy_trainer.init(seed)
         gen = torch.Generator().manual_seed(seed + DISC_SEED_OFFSET)
-        disc = MLPDisc(self.disc_input_dim, gen,
-                       num_layer_blocks=cfg.disc_num_blocks,
-                       hid_dim=cfg.disc_hid_dim, hid_act=cfg.disc_hid_act,
-                       use_bn=cfg.disc_use_bn,
-                       clamp_magnitude=cfg.disc_clamp_magnitude
-                       ).to(self.device)
+        if self.rnn:
+            disc = RNNDisc(self.disc_input_dim, gen, hid_dim=cfg.disc_hid_dim,
+                           cell_type=cfg.disc_rnn_cell,
+                           num_layers=cfg.disc_rnn_layers,
+                           bidirectional=cfg.disc_rnn_bidirectional,
+                           clamp_magnitude=cfg.disc_clamp_magnitude)
+        else:
+            disc = MLPDisc(self.disc_input_dim, gen,
+                           num_layer_blocks=cfg.disc_num_blocks,
+                           hid_dim=cfg.disc_hid_dim,
+                           hid_act=cfg.disc_hid_act, use_bn=cfg.disc_use_bn,
+                           clamp_magnitude=cfg.disc_clamp_magnitude)
+        disc = disc.to(self.device)
         e = self.expert_replay
         copy = lambda t: t.to(self.device, copy=True)  # noqa: E731
         expert = ReplayState(
@@ -194,41 +221,82 @@ class AdvIRL:
             else batch["action"]
         return torch.cat([batch["obs"], other], dim=-1)
 
+    def _logits(self, disc, x: torch.Tensor, train: bool,
+                stats: list | None = None) -> torch.Tensor:
+        """The discriminator's logits; an rnn discriminator has no train
+        mode (no BatchNorm)."""
+        if self.rnn:
+            return disc(x)
+        return disc(x, train=train, stats=stats)
+
+    def _windows(self, replay: ReplayState, noise, batch_size: int):
+        """max(1, batch_size // T) windows of T = disc_traj_len steps of
+        the buffer: (data [n_w, T, ...], valid [n_w, T])."""
+        T = self.config.disc_traj_len
+        win = replay_sample_window(
+            replay, noise.replay(max(1, batch_size // T)), T)
+        return win, win.pop("valid")
+
     def _disc_update(self, state: AdvIRLState, replay: ReplayState, noise
                      ) -> tuple[AdvIRLState, Dict[str, torch.Tensor]]:
         """One discriminator step (JAX `_disc_update`, adv_irl.py:259-348),
         in place."""
         cfg = self.config
-        n = cfg.disc_optim_batch_size
-        expert_in = self._disc_input(
-            replay_sample(state.expert, noise.replay(n)))
-        policy_in = self._disc_input(replay_sample(replay, noise.replay(n)))
-        eps = noise.interpolation(n)
+        if self.rnn:
+            expert, e_valid = self._windows(state.expert, noise,
+                                            cfg.disc_optim_batch_size)
+            policy, p_valid = self._windows(replay, noise,
+                                            cfg.disc_optim_batch_size)
+            n = e_valid.shape[0]
+            # zero the steps past each window's episode, so the (reversed)
+            # recurrence never mixes in a neighbouring episode
+            expert_in = self._disc_input(expert) * e_valid[..., None]
+            policy_in = self._disc_input(policy) * p_valid[..., None]
+            eps = noise.interpolation(n).reshape(n, 1, 1)
+            valid = torch.cat([e_valid, p_valid]).to(torch.float32)[..., None]
+            ones = (n, 1, 1)                    # targets broadcast over T
+        else:
+            n = cfg.disc_optim_batch_size
+            expert_in = self._disc_input(
+                replay_sample(state.expert, noise.replay(n)))
+            policy_in = self._disc_input(replay_sample(replay,
+                                                       noise.replay(n)))
+            eps = noise.interpolation(n)
+            valid = None
+            ones = (n, 1)
         x = torch.cat([expert_in, policy_in], dim=0)
-        targets = torch.cat([torch.ones((n, 1), device=x.device),
-                             torch.zeros((n, 1), device=x.device)])
+        targets = torch.cat([torch.ones(ones, device=x.device),
+                             torch.zeros(ones, device=x.device)])
 
         disc = state.disc
         stats: list = []
-        logits = disc(x, train=True, stats=stats)
-        ce = torch.mean(F.softplus(logits) - targets * logits)
-        acc = torch.mean(((logits > 0) == (targets > 0.5)).float())
+        logits = self._logits(disc, x, train=True, stats=stats)
+        ce_rows = F.softplus(logits) - targets * logits
+        hit = ((logits > 0) == (targets > 0.5)).float()
+        if valid is None:
+            ce, acc = torch.mean(ce_rows), torch.mean(hit)
+        else:
+            denom = torch.clamp_min(torch.sum(valid), 1.0)
+            ce = torch.sum(ce_rows * valid) / denom
+            acc = torch.sum(hit * valid) / denom
         loss = ce
         if cfg.use_grad_pen:
             interp = (eps * expert_in + (1.0 - eps) * policy_in
                       ).requires_grad_(True)
             (g,) = torch.autograd.grad(
-                torch.sum(disc(interp, train=True)), interp,
+                torch.sum(self._logits(disc, interp, train=True)), interp,
                 create_graph=True)
-            norm = torch.sqrt(torch.clamp_min(torch.sum(g * g, dim=-1),
-                                              1e-12))
+            # one norm a row (mlp) or a window (rnn, over T x D)
+            norm = torch.sqrt(torch.clamp_min(
+                torch.sum((g * g).reshape(g.shape[0], -1), dim=-1), 1e-12))
             grad_pen = torch.mean((norm - 1.0) ** 2)
             loss = ce + cfg.grad_pen_weight * grad_pen
         else:
             grad_pen = torch.zeros((), device=x.device)
         grads = torch.autograd.grad(loss, state.disc_opt.params)
         state.disc_opt.step(grads)
-        disc.update_batch_stats(stats)
+        if not self.rnn:
+            disc.update_batch_stats(stats)
         return state, {"disc_ce_loss": ce.detach(), "disc_acc": acc,
                        "disc_grad_pen": grad_pen.detach()}
 
@@ -253,7 +321,8 @@ class AdvIRL:
     def synthesize_rewards(self, state: AdvIRLState,
                            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """[B] rewards of `batch` from the discriminator in eval mode."""
-        logits = state.disc(self._disc_input(batch), train=False)
+        logits = self._logits(state.disc, self._disc_input(batch),
+                              train=False)
         return self._mode_reward(logits[..., 0])
 
     def _policy_update(self, state: AdvIRLState, replay: ReplayState, noise
@@ -261,18 +330,34 @@ class AdvIRL:
         """One inner-trainer step on synthesized rewards (JAX
         `_policy_update`, adv_irl.py:372-416), in place."""
         cfg = self.config
-        n_exp = cfg.policy_optim_batch_size_from_expert
-        batch = replay_sample(
-            replay, noise.replay(cfg.policy_optim_batch_size - n_exp))
-        if n_exp > 0:
-            exp = replay_sample(state.expert, noise.replay(n_exp))
-            batch = {k: torch.cat([batch[k], exp[k]], dim=0) for k in batch}
-        batch["reward"] = self.synthesize_rewards(state, batch)
+        weight = None
+        if self.rnn:
+            win, valid = self._windows(replay, noise,
+                                       cfg.policy_optim_batch_size)
+            mask = valid.to(torch.float32)
+            with torch.no_grad():
+                logits = state.disc(self._disc_input(win) * valid[..., None])
+            rew = self._mode_reward(logits[..., 0]) * mask
+            # the masked steps keep their obs, action and next_obs: only
+            # their reward is zeroed (the JAX package's batch)
+            batch = {k: v.reshape((-1,) + v.shape[2:])
+                     for k, v in win.items()}
+            batch["reward"] = rew.reshape(-1)
+            weight = mask.reshape(-1)
+        else:
+            n_exp = cfg.policy_optim_batch_size_from_expert
+            batch = replay_sample(
+                replay, noise.replay(cfg.policy_optim_batch_size - n_exp))
+            if n_exp > 0:
+                exp = replay_sample(state.expert, noise.replay(n_exp))
+                batch = {k: torch.cat([batch[k], exp[k]], dim=0)
+                         for k in batch}
+            batch["reward"] = self.synthesize_rewards(state, batch)
         if cfg.reward_norm:
             state, batch["reward"] = self._normalize_rewards(
-                state, batch["reward"])
+                state, batch["reward"], weight)
         eps_next, eps_new = noise.train(
-            (cfg.policy_optim_batch_size, self.action_size))
+            (batch["reward"].shape[0], self.action_size))
         state.policy, pol_metrics = self.policy_trainer.train_step(
             state.policy, batch, eps_next, eps_new)
         metrics = {f"policy_{k}": v for k, v in pol_metrics.items()}

@@ -1,6 +1,6 @@
 """Device-resident replay ring (counterpart: ilswiss_tpu/data/replay.py;
 `round_capacity`, `replay_init`, `replay_add`, `replay_sample`,
-`replay_sample_nstep`).
+`replay_sample_window`, `replay_sample_nstep`).
 
 Fixed `[capacity, ...]` tensors, a write cursor and per-row episode ids
 `env_idx * 2**20 + env_ep`.  The capacity is rounded up to a multiple of
@@ -101,6 +101,31 @@ def replay_sample(state: ReplayState, u: torch.Tensor
 def _rows(state: ReplayState, u: torch.Tensor) -> torch.Tensor:
     return torch.clamp_max((u * float(state.size)).to(torch.int64),
                            state.size - 1)
+
+
+def replay_sample_window(state: ReplayState, u: torch.Tensor, window: int
+                         ) -> Dict[str, torch.Tensor]:
+    """Same-env trajectory windows [Bw, window, ...] starting at the rows
+    `u` [Bw] picks (as `replay_sample`), with `valid` [Bw, window]: the
+    prefix of each window that stays inside the episode of its first step
+    (the trajectory discriminator's batches).
+
+    Consecutive steps of one env sit `stride` = len(env_ep) rows apart:
+    the ring's write batch, or a demo buffer's own stride (data/demo.py).
+    Offsets wrap modulo the capacity; a step is valid while every step
+    up to it has the first step's episode id and lies below `size`."""
+    capacity = state.data["reward"].shape[0]
+    stride = state.env_ep.shape[0]
+    idx = _rows(state, u)
+    offs = (idx[:, None] + stride * torch.arange(
+        window, dtype=torch.int64, device=idx.device)[None, :]) % capacity
+    same_ep = state.ep_id[offs] == state.ep_id[idx][:, None]
+    in_range = offs < state.size
+    valid = torch.cumprod(torch.logical_and(same_ep, in_range).to(
+        torch.int32), dim=1).to(torch.bool)
+    out = {k: v[offs] for k, v in state.data.items()}
+    out["valid"] = valid
+    return out
 
 
 def replay_sample_nstep(state: ReplayState, u: torch.Tensor, n_step: int,

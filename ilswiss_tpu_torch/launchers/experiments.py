@@ -1,6 +1,6 @@
 """Variant-dict -> training run (counterpart:
-ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL and
-policy evaluation).
+ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL,
+PPO and policy evaluation).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -622,6 +622,11 @@ def run_adv_irl(variant: Dict[str, Any], device=None):
             disc_clamp_magnitude=float(
                 variant.get("disc_clamp_magnitude", 10.0)),
             disc_type=str(variant.get("disc_type", "mlp")),
+            disc_traj_len=int(variant.get("disc_traj_len", 16)),
+            disc_rnn_cell=str(variant.get("disc_rnn_cell", "gru")),
+            disc_rnn_layers=int(variant.get("disc_rnn_layers", 2)),
+            disc_rnn_bidirectional=bool(
+                variant.get("disc_rnn_bidirectional", True)),
         ),
     )
     return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
@@ -666,6 +671,91 @@ def run_eval_policy(variant: Dict[str, Any], device=None):
     return stats
 
 
+def run_ppo(variant: Dict[str, Any], device=None):
+    """PPO (reference run_scripts/ppo_exp_script.py; the JAX `run_ppo`'s
+    device branch, experiments.py:646-725): `ppo_params` with the JAX
+    defaults, `rollout_length`, and `env_specs.obs_norm` as the loop's
+    `normalize_obs`.  The evaluator runs on the training envs, its act
+    normalizing observations with the runner's moments; each epoch logs
+    the trainer's metrics, the evaluation's keys, TotalEnvSteps, TrainTime
+    and, as the off-policy launcher, EvalTime and EnvStepsPerSec, and hands
+    the whole runner (moments included) to `SnapshotManager.on_epoch`.
+
+    The JAX launcher never reads `load_params` for PPO, so a resume is
+    silently dropped there; here a set `load_params` raises ValueError."""
+    from ilswiss_tpu_torch.algorithms.ppo import PPO, PPOConfig
+    from ilswiss_tpu_torch.runtime.onpolicy import (
+        OnPolicyConfig, OnPolicyLoop,
+    )
+
+    if variant.get("load_params"):
+        raise ValueError(
+            "load_params is set, but PPO has no resume: the JAX launcher "
+            "never reads load_params for PPO, and the port adds none")
+    device = resolve_device(device)
+    seed, vec, rl, logger = _on_device_vec(variant, "ppo", device)
+    p = _alg(variant, "ppo_params")
+    algo = PPO(
+        obs_size=vec.env.observation_size,
+        action_size=vec.env.action_size,
+        config=PPOConfig(
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            gae_tau=float(p.get("gae_tau", 0.9)),
+            clip_eps=float(p.get("clip_eps", 0.2)),
+            policy_lr=float(p.get("policy_lr", 3e-4)),
+            value_lr=float(p.get("value_lr", 3e-4)),
+            value_l2_reg=float(p.get("value_l2_reg", 1e-3)),
+            use_value_clip=bool(p.get("use_value_clip", False)),
+            update_epoch=int(p.get("update_epoch", 10)),
+            mini_batch_size=int(p.get("mini_batch_size", 64)),
+        ),
+        device=device, **_nets(variant))
+    loop = OnPolicyLoop(vec, algo, OnPolicyConfig(
+        rollout_length=int(p.get("rollout_length", 128)),
+        normalize_obs=bool(_alg(variant, "env_specs").get("obs_norm",
+                                                          False))))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 10_000))
+    num_epochs = int(rl.get("num_epochs", 100))
+    max_path_length = int(rl.get("max_path_length", 1000))
+
+    def eval_act(st, obs):
+        algo_state, obs_rms = st
+        return algo.act(algo_state, loop.normalize(obs_rms, obs),
+                        deterministic=True)
+
+    evaluator = make_evaluator(vec, eval_act, max_path_length)
+    snap = SnapshotManager(logger.log_dir,
+                           gap=int(rl.get("freq_saving", 10)),
+                           save_best=bool(rl.get("save_best", True)))
+    logger.log(f"trainer {type(algo).__name__}: {algo.config}; "
+               f"{loop.config}")
+    runner = loop.init(seed)
+    for epoch in range(num_epochs):
+        t0, before = time.time(), runner.total_env_steps
+        with phase("train"):
+            runner, metrics = loop.train_epoch(runner, steps_per_epoch)
+        train_time = time.time() - t0
+        t0 = time.time()
+        with phase("eval"):
+            eval_stats = evaluator((runner.algo_state, runner.obs_rms),
+                                   Noise(seed + epoch + 1, device))
+        eval_time = time.time() - t0
+        logger.record_dict(metrics, prefix="trainer/")
+        logger.record_dict(eval_stats)
+        logger.record_tabular("TotalEnvSteps", runner.total_env_steps)
+        logger.record_tabular("TrainTime", train_time)
+        logger.record_tabular("EvalTime", eval_time)
+        # an epoch is whole iterations of T * num_envs steps
+        logger.record_tabular(
+            "EnvStepsPerSec",
+            (runner.total_env_steps - before) / max(train_time, 1e-9))
+        logger.dump_tabular(epoch)
+        snap.on_epoch(epoch, runner, eval_stats)
+    logger.close()
+    return runner
+
+
 def _unported_run(name: str, item: str) -> Callable:
     def run(variant: Dict[str, Any], device=None):
         raise _not_ported(f"the {name!r} experiment", item)
@@ -685,9 +775,9 @@ EXPERIMENTS: Dict[str, Callable] = {
     "eval_policy": run_eval_policy,
     "adv_irl": run_adv_irl,
     "gail": run_adv_irl,
+    "ppo": run_ppo,
     **{name: _unported_run(name, item) for name, item in (
         ("sac_vmap_seeds", "2.10"),
-        ("ppo", "2.3"),
         ("bc", "2.6"),
         ("dagger", "2.6"),
         ("render_policy", "2.10"),

@@ -1,12 +1,16 @@
 """Policy heads (counterpart: ilswiss_tpu/models/policies.py;
-`TanhGaussianPolicy`, `GaussianNoisePolicy`, `CategoricalPolicy`,
-`noisy_action`, `categorical_act`).
+`TanhGaussianPolicy`, `GaussianPolicy`, `GaussianNoisePolicy`,
+`CategoricalPolicy`, `noisy_action`, `categorical_act`).
 
   - `TanhGaussianPolicy`, the SAC actor: a ReLU trunk `hidden_i`, a mean
     head `mean` and a state-dependent log-std head `log_std` clamped to
     [-20, 2]; the heads draw weight and bias from U(+-1e-3).  This module
     is the training forward (autograd); acting can take the fused kernel
     instead (ops/fused_mlp.py).
+  - `GaussianPolicy`, the PPO actor: an unbounded diagonal Gaussian with
+    the same trunk and mean head, and a log-std parameter `log_std` [A]
+    (zeros) broadcast to the mean's shape, or a head `log_std` where
+    `state_dependent_std`; clamped to [-20, 2].
   - `GaussianNoisePolicy`, the TD3 / DDPG actor: one MLP `mlp` with a
     tanh output, its output layer drawn from U(+-1e-3).  Exploration noise
     is added by the caller (`noisy_action`).
@@ -57,6 +61,42 @@ class TanhGaussianPolicy(nn.Module):
         for layer in self.hidden_layers():
             x = torch.relu(layer(x))
         return self.mean(x), D.clamp_log_std(self.log_std(x))
+
+
+class GaussianPolicy(nn.Module):
+    """Returns (mean, clamped log_std) [B, A] for a batch of
+    observations."""
+
+    def __init__(self, obs_size: int, action_dim: int,
+                 hidden_sizes: Sequence[int], generator: torch.Generator,
+                 state_dependent_std: bool = False, init_w: float = 1e-3):
+        super().__init__()
+        self.num_hidden = len(hidden_sizes)
+        width = obs_size
+        for i, h in enumerate(hidden_sizes):
+            layer = nn.Linear(width, h)
+            fanin_uniform_(layer, generator)
+            self.add_module(f"hidden_{i}", layer)
+            width = h
+        self.mean = nn.Linear(width, action_dim)
+        small_uniform_(self.mean, init_w, generator)
+        if state_dependent_std:
+            self.log_std = nn.Linear(width, action_dim)
+            small_uniform_(self.log_std, init_w, generator)
+        else:
+            self.log_std = nn.Parameter(torch.zeros(action_dim))
+
+    def forward(self, obs: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        x = obs
+        for i in range(self.num_hidden):
+            x = torch.relu(getattr(self, f"hidden_{i}")(x))
+        mean = self.mean(x)
+        if isinstance(self.log_std, nn.Linear):
+            log_std = self.log_std(x)
+        else:
+            log_std = self.log_std.expand(mean.shape)
+        return mean, D.clamp_log_std(log_std)
 
 
 class GaussianNoisePolicy(nn.Module):

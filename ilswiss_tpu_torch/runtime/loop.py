@@ -142,6 +142,12 @@ class Noise:
         explorer."""
         return self._uniform(shape, -1.0, 1.0)
 
+    def permutation(self, n: int) -> torch.Tensor:
+        """A uniform random permutation of range(n), int64 [n]: the row
+        order of one PPO pass (algorithms/ppo.py)."""
+        return torch.randperm(n, generator=self.generator,
+                              device=self.device)
+
 
 @dataclass
 class RunnerState:

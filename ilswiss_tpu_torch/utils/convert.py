@@ -20,7 +20,13 @@ maps:
     network (`<name>_params`, the port's module `<name>`), one optimizer
     per trained network and their step counters, which become ints;
   * a JAX demo buffer of stride 1 has `env_ep=None`, the port's a zero
-    vector of length 1 (data/demo.py).
+    vector of length 1 (data/demo.py);
+  * PPO's optimizers are optax chains: the policy's `(clip state, adam
+    state)`, the clip stateless, and the value net's plain adam, each
+    adam's moments trees shaped like the params; the Gaussian policy's
+    free log-std is the leaf `log_std` [A];
+  * the rnn discriminator's cells keep flax's gate names, each gate a
+    Dense (`cell_f0.ir` is `params/cell_f0/ir`).
 
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
@@ -35,6 +41,7 @@ import torch
 
 from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLState
 from ilswiss_tpu_torch.algorithms.ddpg import DDPGState
+from ilswiss_tpu_torch.algorithms.ppo import PPO, PPOState
 from ilswiss_tpu_torch.algorithms.discrete_sac import DiscreteSACState
 from ilswiss_tpu_torch.algorithms.dqn import DQNState
 from ilswiss_tpu_torch.algorithms.sac import SAC, Adam, SACState, TwinQ
@@ -43,7 +50,14 @@ from ilswiss_tpu_torch.algorithms.td3 import TD3State
 from ilswiss_tpu_torch.data.replay import ReplayState
 from ilswiss_tpu_torch.envs.base import EnvState
 from ilswiss_tpu_torch.models.discriminators import MLPDisc
-from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
+from ilswiss_tpu_torch.models.policies import (
+    GaussianPolicy, TanhGaussianPolicy,
+)
+from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
+from ilswiss_tpu_torch.runtime.onpolicy import (
+    OnPolicyLoop, OnPolicyRunnerState,
+)
+from ilswiss_tpu_torch.utils.running_stats import RunningMeanStd
 
 # (port tensor, flax path, transposed); the lists that feed optax.flatten's
 # moments are in ravel_pytree order
@@ -275,14 +289,38 @@ def disc_to_numpy(disc: MLPDisc) -> Dict[str, Any]:
     return out
 
 
+def _rnn_disc_leaves(disc: RNNDisc) -> List[_Leaf]:
+    """Every parameter, at its path in the flax params tree (embed, each
+    direction's cells gate by gate, logit)."""
+    return [(t, path[1:], tr) for t, path, tr in _module_leaves(disc)]
+
+
+def rnn_disc_from_jax(disc: RNNDisc, variables) -> None:
+    """Load a flax RNNDisc's variables ({"params"}) into `disc`, in
+    place."""
+    _load_leaves(_rnn_disc_leaves(disc), variables["params"])
+
+
+def rnn_disc_to_numpy(disc: RNNDisc) -> Dict[str, Any]:
+    return {"params": _dump_leaves(_rnn_disc_leaves(disc))}
+
+
+def _any_disc_leaves(disc) -> List[_Leaf]:
+    return (_rnn_disc_leaves(disc) if isinstance(disc, RNNDisc)
+            else _disc_leaves(disc))
+
+
 def adv_irl_state_from_jax(algo: AdvIRL, jstate) -> AdvIRLState:
     """An AdvIRLState on the inner trainer's device holding the JAX
     AdvIRLState's values: the discriminator's parameters and running
     averages, its Adam's moments and count, the inner SACState, the
     expert buffer and the reward statistics."""
     state = algo.init(0)
-    disc_from_jax(state.disc, jstate.disc_params)
-    _load_adam_tree(state.disc_opt, _disc_leaves(state.disc),
+    if isinstance(state.disc, RNNDisc):
+        rnn_disc_from_jax(state.disc, jstate.disc_params)
+    else:
+        disc_from_jax(state.disc, jstate.disc_params)
+    _load_adam_tree(state.disc_opt, _any_disc_leaves(state.disc),
                     jstate.disc_opt[0])
     state.policy = sac_state_from_jax(algo.policy_trainer, jstate.policy)
     state.expert = replay_from_jax(jstate.expert, algo.device)
@@ -297,10 +335,12 @@ def adv_irl_state_to_numpy(state: AdvIRLState) -> Dict[str, Any]:
     variables, `disc_opt` {"count", "mu", "nu"} with moment trees shaped
     like the params, the inner state as `sac_state_to_numpy`, the expert
     buffer as `replay_to_numpy`, and `rew_stats`."""
+    rnn = isinstance(state.disc, RNNDisc)
     return {
-        "disc_params": disc_to_numpy(state.disc),
+        "disc_params": (rnn_disc_to_numpy if rnn else disc_to_numpy)(
+            state.disc),
         "disc_opt": _dump_adam_tree(state.disc_opt,
-                                    _disc_leaves(state.disc)),
+                                    _any_disc_leaves(state.disc)),
         "policy": sac_state_to_numpy(state.policy),
         "expert": replay_to_numpy(state.expert),
         "rew_stats": (None if state.rew_stats is None else
@@ -380,6 +420,73 @@ td3_state_from_jax = ddpg_state_from_jax = sac_v_state_from_jax = \
     discrete_sac_state_from_jax = dqn_state_from_jax = offpolicy_state_from_jax
 td3_state_to_numpy = ddpg_state_to_numpy = sac_v_state_to_numpy = \
     discrete_sac_state_to_numpy = dqn_state_to_numpy = offpolicy_state_to_numpy
+
+
+# --- PPO and its on-policy runner ------------------------------------------
+def gaussian_policy_from_jax(policy: GaussianPolicy, params) -> None:
+    """Load a flax GaussianPolicy's variables into `policy`, in place."""
+    _load_leaves(_module_leaves(policy), params)
+
+
+def gaussian_policy_to_numpy(policy: GaussianPolicy) -> Dict[str, Any]:
+    return _dump_leaves(_module_leaves(policy))
+
+
+def ppo_state_from_jax(ppo: PPO, jstate) -> PPOState:
+    """A PPOState on `ppo`'s device holding the JAX PPOState's values: both
+    networks, and both Adams' moments and counts (the policy's adam is the
+    second link of its chain, after the stateless global-norm clip)."""
+    state = ppo.init(0)
+    gaussian_policy_from_jax(state.policy, jstate.policy_params)
+    _load_leaves(_module_leaves(state.vf), jstate.vf_params)
+    _load_adam_tree(state.policy_opt, _module_leaves(state.policy),
+                    jstate.policy_opt[1][0])
+    _load_adam_tree(state.vf_opt, _module_leaves(state.vf),
+                    jstate.vf_opt[0])
+    return state
+
+
+def ppo_state_to_numpy(state: PPOState) -> Dict[str, Any]:
+    """The port's PPOState in the JAX layouts: flax param trees, and per
+    optimizer {"count", "mu", "nu"} with moment trees shaped like the
+    params."""
+    return {
+        "policy_params": gaussian_policy_to_numpy(state.policy),
+        "vf_params": _dump_leaves(_module_leaves(state.vf)),
+        "policy_opt": _dump_adam_tree(state.policy_opt,
+                                      _module_leaves(state.policy)),
+        "vf_opt": _dump_adam_tree(state.vf_opt, _module_leaves(state.vf)),
+    }
+
+
+def running_mean_std_from_jax(jrms, device) -> RunningMeanStd | None:
+    if jrms is None:
+        return None
+    return RunningMeanStd(mean=_tensor(jrms.mean, device, torch.float32),
+                          var=_tensor(jrms.var, device, torch.float32),
+                          count=_tensor(jrms.count, device, torch.float32))
+
+
+def running_mean_std_to_numpy(rms: RunningMeanStd | None
+                              ) -> Dict[str, Any] | None:
+    if rms is None:
+        return None
+    return {k: getattr(rms, k).cpu().numpy()
+            for k in ("mean", "var", "count")}
+
+
+def onpolicy_runner_from_jax(loop: OnPolicyLoop, jrunner, noise
+                             ) -> OnPolicyRunnerState:
+    """An OnPolicyRunnerState holding the JAX runner's env state, PPO
+    state, moments and step count, drawing from `noise` (the JAX runner's
+    key has no counterpart)."""
+    device = loop.device
+    return OnPolicyRunnerState(
+        noise=noise,
+        env_state=env_state_from_jax(jrunner.env_state, device),
+        algo_state=ppo_state_from_jax(loop.algo, jrunner.algo_state),
+        total_env_steps=int(np.asarray(jrunner.total_env_steps)),
+        obs_rms=running_mean_std_from_jax(jrunner.obs_rms, device))
 
 
 def metrics_to_numpy(metrics: Dict[str, torch.Tensor]

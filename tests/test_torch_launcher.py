@@ -214,8 +214,8 @@ def test_routing_raises_naming_the_roadmap_item(tmp_path):
     assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
     with pytest.raises(NotImplementedError, match="item 2.4"):
         pexp.EXPERIMENTS["mbpo"](_variant(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.3"):
-        pexp.EXPERIMENTS["ppo"](_variant(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.6"):
+        pexp.EXPERIMENTS["bc"](_variant(tmp_path), device="cpu")
     if not torch.cuda.is_available():      # the default device is the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(_variant(tmp_path))
