@@ -163,7 +163,25 @@ exits non-zero on any failure; no phase catches its own error.
      discriminator step on the card against the same step on a CPU copy,
      same state and draws, at rtol 2e-4, atol 2e-5; a discriminator step's
      and a policy step's wall ms, device operations and device ms, and the
-     share of masked steps in the policy batches.
+     share of masked steps in the policy batches;
+ 15. MBPO through the launcher: exp_specs/mbpo/mbpo_hopper.yaml copied
+     under build/chip_smoke_mbpo/ with only num_epochs (301 -> 1) and
+     num_steps_per_epoch (1000 -> 496, two segments of 31 iterations) cut,
+     through `EXPERIMENTS["mbpo"]`: SAC 256 x 2 (160 steps an iteration
+     on mixed batches, real_ratio 0.05), the 7-net ensemble of 200 x 4,
+     rollouts of 100,000 branches, a 1M-row real and a 6,000,000-row
+     model ring.  Launch counts exact (K1 1687; K2 = K3 = K4 = 0), every
+     value finite, the model ring's size the sum of the rows the rollouts
+     wrote, the 'last' snapshot restored bit for bit, K1 at B = 8 on the
+     end states against its plain version; an ensemble minibatch step and
+     a model rollout of 3 steps at R = 1024 on the card against a CPU copy
+     from the same state and draws (rtol 2e-4, atol 2e-5; the rows each
+     step wrote, ptr and size exactly); the ensemble fits' seconds and
+     epochs, a minibatch step's and a mixed-batch SAC step's wall ms,
+     device operations and device ms, rollouts of 1 and 15 steps at R =
+     100,000 with the branches alive per step, an iteration, the peak
+     device memory, the snapshot's size, save and load time, and the
+     spec's estimated wall time at 301 epochs.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -1342,9 +1360,9 @@ RNN_GAIL_K1 = [2635, 1630, 1005]     # runs A, B, B's resume
 
 
 class ReplayedDraws:
-    """`Noise`'s replay and interpolation draws, answered from a list of
-    (kind, CPU tensor) in order, on `device`: the same draws for a step
-    on the card and on the CPU."""
+    """`Noise`'s replay, interpolation and model-rollout draws, answered
+    from a list of (kind, CPU tensor) in order, on `device`: the same
+    draws for a step on the card and on the CPU."""
 
     def __init__(self, draws, device):
         self.draws, self.device = list(draws), device
@@ -1360,6 +1378,44 @@ class ReplayedDraws:
 
     def interpolation(self, n):
         return self._next("interpolation")
+
+    def act(self, shape):
+        return self._next("act")
+
+    def elite(self, n, num_elites):
+        return self._next("elite")
+
+    def model(self, shape):
+        return self._next("model")
+
+
+def compare_trees(what: str, got, want, rtol: float, atol: float) -> float:
+    """`got` against `want` (trees as `to_tree` makes them) leaf by leaf
+    at rtol / atol, scalars exactly; fails naming the first leaf outside.
+    Returns the largest |got - want|."""
+    import torch
+
+    worst = 0.0
+
+    def walk(g, w, path):
+        nonlocal worst
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, list):
+            for i, (gi, wi) in enumerate(zip(g, w)):
+                walk(gi, wi, f"{path}[{i}]")
+        elif isinstance(w, torch.Tensor):
+            if not torch.allclose(g, w, rtol=rtol, atol=atol):
+                fail(f"{what}: the card's {path} differs from the CPU's by "
+                     f"{float((g - w).abs().max()):.3g}")
+            if w.numel():
+                worst = max(worst, float((g - w).abs().max()))
+        elif g != w:
+            fail(f"{what}: {path} is {g} on the card, {w} on the CPU")
+
+    walk(got, want, "")
+    return worst
 
 
 def rnn_gail_phase(card: str, counters: dict, k1_check) -> dict:
@@ -1449,30 +1505,12 @@ def rnn_gail_phase(card: str, counters: dict, k1_check) -> dict:
                                   ReplayedDraws(draws, algo.device))
     _, m_cpu = cpu_algo._disc_update(cpu_state, cpu_ring,
                                      ReplayedDraws(draws, "cpu"))
-    got = to_tree({"disc": card_state.disc, "opt": card_state.disc_opt,
-                   "metrics": m_card})
-    ref = to_tree({"disc": cpu_state.disc, "opt": cpu_state.disc_opt,
-                   "metrics": m_cpu})
-    worst = 0.0
-
-    def compare(g, w, path):
-        nonlocal worst
-        if isinstance(w, dict):
-            for k in w:
-                compare(g[k], w[k], f"{path}/{k}")
-        elif isinstance(w, list):
-            for i, (gi, wi) in enumerate(zip(g, w)):
-                compare(gi, wi, f"{path}[{i}]")
-        elif isinstance(w, torch.Tensor):
-            if not torch.allclose(g, w, rtol=2e-4, atol=2e-5):
-                fail(f"rnn GAIL: the card's discriminator step differs "
-                     f"from the CPU's in {path} by "
-                     f"{float((g - w).abs().max()):.3g}")
-            worst = max(worst, float((g - w).abs().max()))
-        elif g != w:
-            fail(f"rnn GAIL: {path} is {g} on the card, {w} on the CPU")
-
-    compare(got, ref, "")
+    worst = compare_trees(
+        "rnn GAIL discriminator step",
+        to_tree({"disc": card_state.disc, "opt": card_state.disc_opt,
+                 "metrics": m_card}),
+        to_tree({"disc": cpu_state.disc, "opt": cpu_state.disc_opt,
+                 "metrics": m_cpu}), 2e-4, 2e-5)
     print(f"rnn GAIL discriminator step, card vs CPU from the same state "
           f"and draws: parameters, Adam moments and metrics within rtol "
           f"2e-4, atol 2e-5, max |err| {worst:.3g}")
@@ -1526,6 +1564,364 @@ def rnn_gail_phase(card: str, counters: dict, k1_check) -> dict:
             "masked_share": masked, "iteration_ms": it_ms,
             "device_busy_share": busy / it_ms, "full_spec_hours": full_h,
             "epochs": r["rows"], "seconds": r["seconds"]}
+
+
+# Phase 15: MBPO through the launcher, cut in length only (see mbpo_phase)
+MBPO_SPEC = "exp_specs/mbpo/mbpo_hopper.yaml"
+MBPO_CUT = {"num_epochs": 1, "num_steps_per_epoch": 496}
+MBPO_K1 = 1687           # 625 warmup + 2 segments x 31 + 1000 evaluation
+MBPO_CHECK_R = 1024      # branches of the card-vs-CPU rollout
+MBPO_METRICS = ["qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
+                "alpha", "log_pi_mean", "bnn_epochs", "bnn_train_loss",
+                "bnn_holdout_mse", "mean_rollout_length"]
+
+
+@contextlib.contextmanager
+def kept_mbpo():
+    """Inside: every MBPO a launcher initializes ("mbpo"), each ensemble
+    fit's wall seconds and stats ("fits") and each model rollout's wall
+    seconds, length and rows written per step ("rollouts"), host clock,
+    synchronized."""
+    import torch
+
+    from ilswiss_tpu_torch.algorithms import bnn_trainer, mbpo
+
+    seen = {"mbpo": [], "fits": [], "rollouts": []}
+    init = mbpo.MBPO.init
+    train = bnn_trainer.BNNTrainer.train
+    rollout = mbpo.MBPO._rollout_model
+
+    def keep(self, *args, **kwargs):
+        seen["mbpo"].append(self)
+        return init(self, *args, **kwargs)
+
+    def timed_train(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = train(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen["fits"].append((time.perf_counter() - t0, stats))
+        return state, stats
+
+    def timed_rollout(self, runner, length):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = rollout(self, runner, length)
+        torch.cuda.synchronize()
+        seen["rollouts"].append((time.perf_counter() - t0, length, written))
+        return written
+
+    mbpo.MBPO.init = keep
+    bnn_trainer.BNNTrainer.train = timed_train
+    mbpo.MBPO._rollout_model = timed_rollout
+    try:
+        yield seen
+    finally:
+        mbpo.MBPO.init = init
+        bnn_trainer.BNNTrainer.train = train
+        mbpo.MBPO._rollout_model = rollout
+
+
+def mbpo_phase(card: str, counters: dict, k1_check) -> dict:
+    """Phase 15: a copy of MBPO_SPEC under build/chip_smoke_mbpo/ with only
+    MBPO_CUT changed (num_epochs 301 -> 1, num_steps_per_epoch 1000 ->
+    496: two segments of 31 iterations), through `build_variants` and
+    `EXPERIMENTS["mbpo"]` on the card, at the spec's widths: 8 envs, SAC
+    256 x 2 at batch 256 with 160 steps an iteration, the 7-net ensemble
+    (5 elites) of 200 x 4, rollouts of 100,000 branches, real_ratio 0.05,
+    a 1M-row real ring and a 6,000,000-row model ring, the 5000-step
+    warmup and the 1000-step evaluation.  Fails unless K1 launched once
+    per control step (MBPO_K1; K2, K3 and K4 never), every progress.csv
+    value is finite with TotalEnvSteps 5496, the model ring holds the sum
+    of the rows the rollouts wrote, the run's 'last' snapshot restores
+    into a fresh runner bit for bit, K1 agrees with its plain version on
+    the end states at B = 8 (`k1_check`), and one ensemble minibatch step
+    and one model rollout of 3 steps at R = MBPO_CHECK_R on the card agree
+    with the same on a CPU copy, from the same state, rows and draws, at
+    rtol 2e-4, atol 2e-5 (the ring's cursor and size, and the rows each
+    step wrote, exactly).  Then times the ensemble fits, a minibatch step
+    and a mixed-batch SAC step (wall, device operations and device time),
+    model rollouts of 1 and 15 steps at R = 100,000 from the end state
+    (with the branches alive at each step), an iteration, a full snapshot,
+    and estimates the spec's wall time at 301 epochs."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from ilswiss_tpu_torch.algorithms.bnn_trainer import BNNTrainer
+    from ilswiss_tpu_torch.algorithms.mbpo import MBPO, MBPORunnerState
+    from ilswiss_tpu_torch.algorithms.sac import SAC
+    from ilswiss_tpu_torch.data.replay import ReplayState, replay_init
+    from ilswiss_tpu_torch.envs import make_vec
+    from ilswiss_tpu_torch.runtime.checkpoint import (
+        restore_checkpoint, restore_into, to_tree,
+    )
+    from ilswiss_tpu_torch.runtime.loop import Noise
+    from ilswiss_tpu_torch.testing import tree_diff
+
+    out = ROOT / "build" / "chip_smoke_mbpo"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    variant, full = cut_spec(MBPO_SPEC, out, MBPO_CUT)
+    rl, mp = variant["rl_alg_params"], variant["mbpo_params"]
+    n = variant["env_specs"]["env_num"]
+    seg_iters = max(1, mp["model_train_freq"] // n)
+    segments = max(1, rl["num_steps_per_epoch"] // (seg_iters * n))
+    want = {"planar_control_step": rl["min_steps_before_training"] // n
+            + segments * seg_iters + rl["max_path_length"],
+            "planar_forward": 0, "fused_sac_chain": 0,
+            "fused_policy_forward": 0, "pgs_solve": 0}
+    if want["planar_control_step"] != MBPO_K1 or segments != 2:
+        fail(f"MBPO: the spec's schedule is not phase 15's: {segments} "
+             f"segments of {seg_iters} iterations, {want}")
+    torch.cuda.reset_peak_memory_stats()
+    with kept_mbpo() as seen:
+        runner, launches, seconds = run_spec("mbpo", variant, out / "a",
+                                             counters, 1)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("MBPO", (("A (1 epoch)", launches, want),))
+    mbpo = seen["mbpo"][-1]
+    sac, cfg = mbpo.algo, mbpo.config
+    R = cfg.rollout_batch_size
+    widths = (R, mbpo.bnn.config.num_nets, mbpo.bnn.config.num_elites,
+              mbpo.bnn.config.hidden_sizes, sac.hidden,
+              mbpo.grad_steps_per_iter, cfg.batch_size, cfg.real_ratio,
+              runner.replay.data["reward"].shape[0],
+              runner.model_replay.data["reward"].shape[0],
+              sac.target_entropy)
+    if widths != (100_000, 7, 5, (200,) * 4, (256, 256), 160, 256, 0.05,
+                  1_000_000, 6_000_000, -1.0):
+        fail(f"MBPO: the run is not at the spec's widths: {widths}")
+    rows = progress_rows(out / "a")
+    need = [f"trainer/{k}" for k in MBPO_METRICS] + EVAL_COLUMNS
+    if len(rows) != 1 or not set(need) <= set(rows[0]):
+        fail(f"MBPO: progress.csv has {len(rows)} rows, columns "
+             f"{list(rows[0]) if rows else []}")
+    row = {k: float(v) for k, v in rows[0].items()}
+    if not all(math.isfinite(v) for v in row.values()):
+        fail("MBPO: a value of progress.csv is not finite")
+    steps = rl["min_steps_before_training"] + segments * seg_iters * n
+    if row["TotalEnvSteps"] != steps or runner.total_env_steps != steps:
+        fail(f"MBPO: TotalEnvSteps {row['TotalEnvSteps']}, expected {steps}")
+    print("MBPO epoch 0: " + ", ".join(
+        f"{k} {row[k]:.6g}" for k in need) + f", on {card}")
+    print(f"MBPO run: {seconds:.1f} s for the call (warmup, 1 epoch, its "
+          f"evaluation and snapshots), peak device memory "
+          f"{peak / 2**20:.1f} MiB, on {card}")
+
+    written = [w for _, _, w in seen["rollouts"]]
+    capacity = runner.model_replay.data["reward"].shape[0]
+    if len(seen["fits"]) != segments or len(written) != segments \
+            or runner.model_replay.size != min(capacity,
+                                               sum(map(sum, written))):
+        fail(f"MBPO: the model ring holds {runner.model_replay.size} rows, "
+             f"the {len(written)} rollouts wrote {written}")
+    for seg, ((fit_s, stats), (roll_s, length, w)) in enumerate(
+            zip(seen["fits"], seen["rollouts"])):
+        print(f"MBPO segment {seg}: ensemble fit {fit_s:.3f} s, "
+              f"{stats['bnn_epochs']} epochs, holdout MSE of the elites "
+              f"{stats['bnn_holdout_mse']:.5g}; model rollout of {length} "
+              f"step(s) {1e3 * roll_s:.2f} ms, rows written per step {w}; "
+              f"on {card}")
+
+    # the run's own 'last' snapshot, restored into a fresh runner; then a
+    # full snapshot's save and load
+    tree = to_tree(runner)
+    fresh = mbpo.init(variant.get("seed", 0) + 7)
+    restore_checkpoint(str(out / "a" / "checkpoints" / "last"), fresh)
+    bad = tree_diff(tree, to_tree(fresh))
+    if bad:
+        fail(f"MBPO: the 'last' snapshot restored into a fresh runner "
+             f"differs in {bad[:10]}")
+    print("MBPO 'last' snapshot: restored into a fresh runner, bit for bit "
+          "(SAC and the ensemble with their Adams, the normaliser, elites "
+          "and holdout MSEs, both rings, the env state, the noise "
+          "generator)")
+    size, save_s, load_s = snapshot_times("MBPO", out / "snapshot", runner,
+                                          fresh, tree)
+    del fresh, tree
+    print(f"MBPO full snapshot: {size:.2f} MiB on disk, save {save_s:.3f} "
+          f"s, load {load_s:.3f} s, on {card}")
+    k1_ms, k1_err = k1_on_end_states("MBPO", runner, n,
+                                     counters["planar_control_step"],
+                                     k1_check, 31, sizes=(n,))
+
+    # card vs CPU: one ensemble minibatch step from a copy of the end
+    # state, on the same rows of the real ring
+    dev = runner.env_state.obs.device
+    gen = torch.Generator().manual_seed(37)
+    cpu_trainer = BNNTrainer(mbpo.obs_size, mbpo.action_size,
+                             mbpo.bnn.config, device="cpu")
+    real = runner.replay
+    cpu_real = ReplayState(data={k: v.cpu() for k, v in real.data.items()},
+                           ep_id=real.ep_id.cpu(), ptr=real.ptr,
+                           size=real.size, env_ep=real.env_ep.cpu())
+    d = cpu_real.data
+    idx = torch.randint(0, real.size, (mbpo.bnn.config.num_nets,
+                                       mbpo.bnn.config.batch_size),
+                        generator=gen)
+    inp = torch.cat([d["obs"], d["action"]], -1)[idx]
+    tgt = torch.cat([d["reward"][:, None], d["next_obs"] - d["obs"]],
+                    -1)[idx]
+    state_tree = to_tree(runner.bnn_state)
+    card_bnn = restore_into(mbpo.bnn.init(0), state_tree)
+    cpu_bnn = restore_into(cpu_trainer.init(0), state_tree)
+    loss_card = mbpo.bnn.minibatch_step(card_bnn, inp.to(dev), tgt.to(dev))
+    loss_cpu = cpu_trainer.minibatch_step(cpu_bnn, inp, tgt)
+    bnn_err = compare_trees(
+        "MBPO ensemble minibatch step",
+        to_tree({"loss": loss_card, "params": card_bnn.params,
+                 "adam": card_bnn.opt_state}),
+        to_tree({"loss": loss_cpu, "params": cpu_bnn.params,
+                 "adam": cpu_bnn.opt_state}), 2e-4, 2e-5)
+    print(f"MBPO ensemble minibatch step, card vs CPU from the same state "
+          f"and rows: loss, parameters and Adam moments within rtol 2e-4, "
+          f"atol 2e-5, max |err| {bnn_err:.3g}")
+
+    # card vs CPU: a model rollout of 3 steps at R = MBPO_CHECK_R from the
+    # end state and the same draws, into model rings of 4 R rows whose
+    # cursor sits 1.5 R before the wrap
+    small = dataclasses.replace(cfg, rollout_batch_size=MBPO_CHECK_R)
+    cpu_sac = SAC(sac.obs_size, sac.action_size, sac.config,
+                  net_size=sac.hidden[0], num_hidden_layers=len(sac.hidden),
+                  device="cpu")
+    env_name = variant["env_specs"]["env_name"]
+    draws = [("replay", torch.rand(MBPO_CHECK_R, generator=gen))]
+    for _ in range(3):
+        draws += [("act", torch.randn((MBPO_CHECK_R, sac.action_size),
+                                      generator=gen)),
+                  ("elite", torch.randint(0, mbpo.bnn.config.num_elites,
+                                          (MBPO_CHECK_R,), generator=gen)),
+                  ("model", torch.randn((MBPO_CHECK_R, 1 + mbpo.obs_size),
+                                        generator=gen))]
+    rollouts = {}
+    for where, m, algo_state, bnn_state, ring in (
+            ("card", MBPO(mbpo.vec_env, sac, mbpo.terminal_fn, small,
+                          mbpo.bnn.config), runner.algo_state,
+             runner.bnn_state, real),
+            ("cpu", MBPO(make_vec(env_name, n, device="cpu"), cpu_sac,
+                         mbpo.terminal_fn, small, mbpo.bnn.config),
+             restore_into(cpu_sac.init(0), to_tree(runner.algo_state)),
+             restore_into(cpu_trainer.init(0), state_tree), cpu_real)):
+        model_ring = replay_init(4 * MBPO_CHECK_R, m.obs_size, m.action_size,
+                                 write_batch=MBPO_CHECK_R, device=m.device)
+        cap = model_ring.data["reward"].shape[0]
+        model_ring.ptr = model_ring.size = cap - 3 * MBPO_CHECK_R // 2
+        r = MBPORunnerState(noise=ReplayedDraws(draws, m.device),
+                            env_state=None, replay=ring,
+                            model_replay=model_ring, algo_state=algo_state,
+                            bnn_state=bnn_state, total_env_steps=0)
+        rollouts[where] = (m._rollout_model(r, 3), model_ring)
+    (w_card, ring_card), (w_cpu, ring_cpu) = rollouts["card"], rollouts["cpu"]
+    if w_card != w_cpu:
+        step = next(i for i, (a, b) in enumerate(zip(w_card, w_cpu))
+                    if a != b)
+        fail(f"MBPO rollout, card vs CPU: a branch's terminal flipped at a "
+             f"threshold before step {step + 1}: rows written {w_card} on "
+             f"the card, {w_cpu} on the CPU")
+    if (ring_card.ptr, ring_card.size) != (ring_cpu.ptr, ring_cpu.size):
+        fail(f"MBPO rollout, card vs CPU: ptr / size "
+             f"{ring_card.ptr} / {ring_card.size} against "
+             f"{ring_cpu.ptr} / {ring_cpu.size}")
+    roll_err = compare_trees("MBPO model rollout", to_tree(ring_card.data),
+                             to_tree(ring_cpu.data), 2e-4, 2e-5)
+    print(f"MBPO model rollout of 3 steps at R = {MBPO_CHECK_R}, card vs "
+          f"CPU from the same state and draws: rows written per step "
+          f"{w_card} on both, the same ptr / size ({ring_card.ptr} / "
+          f"{ring_card.size}, across the wrap), rows within rtol 2e-4, "
+          f"atol 2e-5, max |err| {roll_err:.3g}")
+
+    # costs, on the end state (the runner's rings and SAC state are not
+    # read for a check after this)
+    noise = Noise(41, dev)
+    bnn_ms, bnn_ops, bnn_dev_ms = step_costs(
+        lambda: mbpo.bnn.minibatch_step(card_bnn, inp.to(dev), tgt.to(dev)))
+
+    def sac_step():
+        batch = mbpo._mixed_batch(runner, noise)
+        sac.train_step(runner.algo_state, batch,
+                       *sac.train_noise(noise, cfg.batch_size))
+
+    sac_ms, sac_ops, sac_dev_ms = step_costs(sac_step)
+    print(f"MBPO update steps: an ensemble minibatch step (7 nets, 256 "
+          f"rows each) {bnn_ops:.0f} device operations, {bnn_dev_ms:.3f} "
+          f"ms of device time in {bnn_ms:.3f} ms of wall time; a "
+          f"mixed-batch SAC step {sac_ops:.0f}, {sac_dev_ms:.3f} ms in "
+          f"{sac_ms:.3f} ms; on {card}")
+    roll_ms = {}
+    for length in (1, 15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alive = mbpo._rollout_model(runner, length)
+        torch.cuda.synchronize()
+        roll_ms[length] = 1e3 * (time.perf_counter() - t0)
+        print(f"MBPO model rollout of {length} step(s) at R = {R} from the "
+              f"end state: {roll_ms[length]:.2f} ms, branches alive per "
+              f"step {alive}, on {card}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mbpo._train_iter(runner)
+    torch.cuda.synchronize()
+    it_ms = 1e3 * (time.perf_counter() - t0) / 3
+    busy = (k1_ms[n] + mbpo.grad_steps_per_iter * sac_dev_ms) / it_ms
+    fit_s = sum(f for f, _ in seen["fits"])
+    fit_epochs = [st["bnn_epochs"] for _, st in seen["fits"]]
+    print(f"MBPO iteration: {it_ms:.1f} ms (3 iterations timed apart: one "
+          f"act, K1 at B = {n} {k1_ms[n]:.4f} ms, {mbpo.grad_steps_per_iter} "
+          f"mixed-batch SAC steps); the device busy for about {busy:.1%} of "
+          f"it; the epoch: TrainTime {row['TrainTime']:.2f} s ({fit_s:.2f} s "
+          f"of it the {segments} ensemble fits of {fit_epochs} epochs), "
+          f"EvalTime {row['EvalTime']:.2f} s; on {card}")
+
+    # the spec at full length: 4 segments an epoch, each an ensemble fit
+    # on the real ring (as many epochs as the last fit here, which, like
+    # every later fit, starts from a fitted ensemble; n_train // 256
+    # minibatch steps an epoch at the measured wall time), a rollout at
+    # the schedule's length (the measured time per step at R = 100,000),
+    # 31 iterations at the measured time; the evaluation and a full
+    # 'last' snapshot every epoch, another every freq_saving epochs
+    full_segments = max(1, full["num_steps_per_epoch"] // (seg_iters * n))
+    epochs_per_fit = fit_epochs[-1]
+    step_s = roll_ms[15] / 15 / 1e3
+    ring_rows = rl["min_steps_before_training"]
+    total_s = 0.0
+    for epoch in range(full["num_epochs"]):
+        for _ in range(full_segments):
+            holdout = min(int(ring_rows * 0.2), 5000)
+            total_s += epochs_per_fit * ((ring_rows - holdout) // 256) \
+                * bnn_ms / 1e3
+            total_s += mbpo.rollout_length(epoch) * step_s
+            total_s += seg_iters * it_ms / 1e3
+            ring_rows += seg_iters * n
+        total_s += row["EvalTime"] + save_s * (
+            2 if epoch % int(full.get("freq_saving", 10)) == 0 else 1)
+    full_h = total_s / 3600
+    print(f"MBPO spec at full length ({full['num_epochs']} epochs of "
+          f"{full_segments} segments), at these rates: {full_h:.1f} h; "
+          f"assumed: each ensemble fit takes {epochs_per_fit} epochs (the "
+          f"last fit's here) at any ring size, each epoch n_train // 256 "
+          f"minibatch steps of {bnn_ms:.2f} ms; a model step "
+          f"{1e3 * step_s:.2f} ms at "
+          f"the schedule's length; an iteration {it_ms:.1f} ms; evaluation "
+          f"{row['EvalTime']:.2f} s; a {size:.0f} MiB snapshot in "
+          f"{save_s:.2f} s once an epoch and twice every "
+          f"{full.get('freq_saving', 10)}; on {card}")
+    return {"launches": launches, "k1_ms": k1_ms, "k1_err": k1_err,
+            "bnn_card_vs_cpu_err": bnn_err,
+            "rollout_card_vs_cpu_err": roll_err,
+            "fits": [(f, st) for f, st in seen["fits"]],
+            "rollouts": seen["rollouts"], "bnn_step_ms": bnn_ms,
+            "bnn_ops": bnn_ops, "bnn_device_ms": bnn_dev_ms,
+            "sac_step_ms": sac_ms, "sac_ops": sac_ops,
+            "sac_device_ms": sac_dev_ms, "rollout_ms": roll_ms,
+            "iteration_ms": it_ms, "device_busy_share": busy,
+            "train_s": row["TrainTime"], "eval_s": row["EvalTime"],
+            "peak_mib": peak / 2**20, "snapshot_mib": size,
+            "save_s": save_s, "load_s": load_s, "full_spec_hours": full_h,
+            "seconds": seconds}
 
 
 def main() -> int:
@@ -2255,6 +2651,8 @@ def main() -> int:
     ppo = ppo_phase(card, counters, k1_step_check)
     # ---- 14. the rnn discriminator: gail_hopper.yaml, save and resume -----
     gail_rnn = rnn_gail_phase(card, counters, k1_step_check)
+    # ---- 15. MBPO: mbpo_hopper.yaml through the launcher ------------------
+    mbpo = mbpo_phase(card, counters, k1_step_check)
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -2283,7 +2681,9 @@ def main() -> int:
                  for b, v in ppo["k1_ms"].items()},
          "gail_rnn": {f"b{b}": {"ms": v,
                                 "max_abs_err": gail_rnn["k1_err"][b]}
-                      for b, v in gail_rnn["k1_ms"].items()}},
+                      for b, v in gail_rnn["k1_ms"].items()},
+         "mbpo": {f"b{b}": {"ms": v, "max_abs_err": mbpo["k1_err"][b]}
+                  for b, v in mbpo["k1_ms"].items()}},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
@@ -2338,13 +2738,15 @@ def main() -> int:
     # the ant main path's; K2 and K3 run on all three, and the line carries
     # the ant path's; `launches_by_path` adds the launcher's run A, the
     # GAIL launcher's run A, TD3's and DQN's run A, the 1-epoch runs of
-    # DDPG, SAC-V and discrete SAC, PPO's run and the rnn GAIL's run A
+    # DDPG, SAC-V and discrete SAC, PPO's run, the rnn GAIL's run A and
+    # MBPO's run
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
              "gail": gail["launches"], "td3": td3["launches"],
              **{name: others[name]["launches"]
                 for name in ("ddpg", "sac_v", "dqn", "discrete_sac")},
-             "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"]}
+             "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"],
+             "mbpo": mbpo["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

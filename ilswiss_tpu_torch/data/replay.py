@@ -1,13 +1,14 @@
 """Device-resident replay ring (counterpart: ilswiss_tpu/data/replay.py;
-`round_capacity`, `replay_init`, `replay_add`, `replay_sample`,
-`replay_sample_window`, `replay_sample_nstep`).
+`round_capacity`, `replay_init`, `replay_add`, `replay_add_masked`,
+`replay_sample`, `replay_sample_window`, `replay_sample_nstep`).
 
 Fixed `[capacity, ...]` tensors, a write cursor and per-row episode ids
 `env_idx * 2**20 + env_ep`.  The capacity is rounded up to a multiple of
 the write batch so one write never splits across the wrap.  Unlike the
 JAX functions, `replay_add` writes into the ring's tensors IN PLACE and
 returns the same state, which saves a copy of the ring per write; the
-cursor and size are host integers, since every write has the same size.
+cursor and size are host integers, since every write has the same size
+(`replay_add_masked`'s reads its count from the device once).
 A discrete env's ring keeps its actions as `[capacity]` int32 indices,
 as the JAX ring does; they are cast to int64 only where they index.
 Sampling takes its uniforms as a tensor.
@@ -87,6 +88,30 @@ def replay_add(state: ReplayState, tr: Transition) -> ReplayState:
     state.env_ep += tr.done.to(torch.int32)
     state.ptr = (state.ptr + batch) % capacity
     state.size = min(state.size + batch, capacity)
+    return state
+
+
+def replay_add_masked(state: ReplayState, rows: Dict[str, torch.Tensor],
+                      mask: torch.Tensor) -> ReplayState:
+    """Append only the rows where `mask` [R] is True, in their order,
+    contiguously at the cursor (wrapping modulo the capacity), in place:
+    MBPO's model rollouts drop their ended branches.  `ptr` and `size`
+    advance by the alive count, read from the device once; `ep_id` and
+    `env_ep` stay as they are (model rows have no episodes).  Unlike
+    `replay_add`, a write may have any count and may cross the wrap."""
+    capacity = state.data["reward"].shape[0]
+    if mask.shape[0] > capacity:
+        raise ValueError(f"{mask.shape[0]} rows do not fit the ring "
+                         f"(capacity {capacity})")
+    alive = torch.nonzero(mask).squeeze(1)
+    n = alive.shape[0]
+    first = min(n, capacity - state.ptr)
+    for k, v in rows.items():
+        v = v[alive].to(state.data[k].dtype)
+        state.data[k][state.ptr:state.ptr + first] = v[:first]
+        state.data[k][:n - first] = v[first:]
+    state.ptr = (state.ptr + n) % capacity
+    state.size = min(state.size + n, capacity)
     return state
 
 

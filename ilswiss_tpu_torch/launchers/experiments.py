@@ -1,6 +1,6 @@
 """Variant-dict -> training run (counterpart:
 ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL,
-PPO and policy evaluation).
+PPO, MBPO and policy evaluation).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -756,6 +756,117 @@ def run_ppo(variant: Dict[str, Any], device=None):
     return runner
 
 
+def run_mbpo(variant: Dict[str, Any], device=None):
+    """MBPO (reference run_scripts/mbpo_exp_script.py; the JAX `run_mbpo`'s
+    device branch, experiments.py:1722-1836): the loop keys under
+    `rl_alg_params` or nested in `mbpo_params`, `bnn_params` with the JAX
+    defaults, the terminal predicate of the env's name, evaluation on the
+    training envs; each epoch logs the trainer's metrics, the evaluation's
+    keys, TotalEnvSteps, TrainTime, EvalTime and EnvStepsPerSec, and hands
+    the whole runner to `SnapshotManager.on_epoch` ('best' holds the
+    inner SAC state, as the off-policy launcher's).
+
+    Unlike the JAX launcher (ROADMAP.md section 3): SAC reads
+    `soft_target_tau`, `policy_lr`, `qf_lr` and `target_entropy` from
+    `sac_params` as well as `discount` and `reward_scale` (the JAX one
+    drops the four, so mbpo_hopper.yaml's target entropy -1 becomes -1.5
+    there), and a set `load_params` raises ValueError (the JAX device
+    branch never reads it and starts afresh over the run's snapshots)."""
+    from ilswiss_tpu_torch.algorithms.bnn_trainer import BNNTrainerConfig
+    from ilswiss_tpu_torch.algorithms.mbpo import MBPO, MBPOConfig
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.envs.terminals import get_terminal_func
+
+    if variant.get("load_params"):
+        raise ValueError(
+            "load_params is set, but MBPO has no resume: the JAX launcher "
+            "never reads load_params for MBPO, and the port adds none")
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, "mbpo")
+    mp = _alg(variant, "mbpo_params")
+    # the reference nests the loop schedule inside mbpo_params
+    # (exp_specs/mbpo/*.yaml): accept either layout
+    for k, v in mp.items():
+        if not isinstance(v, dict):
+            rl.setdefault(k, v)
+    _route_host(variant, env_name)
+    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    sp = _alg(variant, "sac_params")
+    sac = SAC(
+        vec.env.observation_size, vec.env.action_size,
+        SACConfig(
+            discount=float(sp.get("discount", 0.99)),
+            reward_scale=float(sp.get("reward_scale", 1.0)),
+            soft_target_tau=float(sp.get("soft_target_tau", 5e-3)),
+            policy_lr=float(sp.get("policy_lr", 3e-4)),
+            qf_lr=float(sp.get("qf_lr", 3e-4)),
+            target_entropy=sp.get("target_entropy"),
+        ),
+        device=device, **_nets(variant))
+    bp = _alg(variant, "bnn_params")
+    max_path_length = int(rl.get("max_path_length", 1000))
+    mbpo = MBPO(
+        vec, sac, get_terminal_func(env_name),
+        config=MBPOConfig(
+            model_train_freq=int(mp.get("model_train_freq", 250)),
+            rollout_batch_size=int(mp.get("rollout_batch_size", 100_000)),
+            real_ratio=float(mp.get("real_ratio", 0.1)),
+            rollout_schedule=tuple(
+                mp.get("rollout_schedule", (20, 100, 1, 1))),
+            batch_size=int(rl.get("batch_size", 256)),
+            grad_steps_per_iter=_grad_steps_per_iter(rl, num_envs),
+            replay_capacity=int(rl.get("replay_buffer_size", 1_000_000)),
+            min_steps_before_training=int(
+                rl.get("min_steps_before_training", 5000)),
+            max_path_length=max_path_length,
+        ),
+        bnn_config=BNNTrainerConfig(
+            num_nets=int(bp.get("num_nets", 7)),
+            num_elites=int(bp.get("num_elites", 5)),
+            hidden_sizes=tuple(bp.get("hidden_sizes", (200,) * 4)),
+            batch_size=int(bp.get("batch_size", 256)),
+            max_epochs=bp.get("max_epochs"),
+            holdout_ratio=float(bp.get("holdout_ratio", 0.2)),
+        ),
+    )
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 1000))
+    num_epochs = int(rl.get("num_epochs", 100))
+    evaluator = make_evaluator(
+        vec, lambda s, o: sac.act(s, o, deterministic=True), max_path_length)
+    snap = SnapshotManager(logger.log_dir,
+                           gap=int(rl.get("freq_saving", 10)),
+                           best_state_fn=lambda r: {
+                               "algo_state": r.algo_state})
+    logger.log(f"trainer {type(sac).__name__}: {sac.config}; "
+               f"{mbpo.config}; {mbpo.bnn.config}")
+    runner = mbpo.warmup(mbpo.init(seed))
+    for epoch in range(num_epochs):
+        t0, before = time.time(), runner.total_env_steps
+        with phase("train"):
+            runner, metrics = mbpo.train_epoch(runner, epoch, steps_per_epoch,
+                                               log=logger.log)
+        train_time = time.time() - t0
+        t0 = time.time()
+        with phase("eval"):
+            eval_stats = evaluator(runner.algo_state,
+                                   Noise(seed + epoch + 1, device))
+        eval_time = time.time() - t0
+        logger.record_dict(metrics, prefix="trainer/")
+        logger.record_dict(eval_stats)
+        logger.record_tabular("TotalEnvSteps", runner.total_env_steps)
+        logger.record_tabular("TrainTime", train_time)
+        logger.record_tabular("EvalTime", eval_time)
+        # an epoch is whole segments of whole iterations
+        logger.record_tabular(
+            "EnvStepsPerSec",
+            (runner.total_env_steps - before) / max(train_time, 1e-9))
+        logger.dump_tabular(epoch)
+        snap.on_epoch(epoch, runner, eval_stats)
+    logger.close()
+    return runner
+
+
 def _unported_run(name: str, item: str) -> Callable:
     def run(variant: Dict[str, Any], device=None):
         raise _not_ported(f"the {name!r} experiment", item)
@@ -776,6 +887,7 @@ EXPERIMENTS: Dict[str, Callable] = {
     "adv_irl": run_adv_irl,
     "gail": run_adv_irl,
     "ppo": run_ppo,
+    "mbpo": run_mbpo,
     **{name: _unported_run(name, item) for name, item in (
         ("sac_vmap_seeds", "2.10"),
         ("bc", "2.6"),
@@ -786,7 +898,6 @@ EXPERIMENTS: Dict[str, Callable] = {
         ("sac_curl", "2.7"),
         ("her", "2.5"),
         ("gcsl", "2.5"),
-        ("mbpo", "2.4"),
         ("gen_expert", "2.6"),
     )},
 }

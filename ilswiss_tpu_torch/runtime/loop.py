@@ -148,6 +148,25 @@ class Noise:
         return torch.randperm(n, generator=self.generator,
                               device=self.device)
 
+    def bootstrap(self, num_nets: int, n: int) -> torch.Tensor:
+        """Each ensemble net's bootstrap rows, int64 [num_nets, n] uniform
+        in [0, n) (algorithms/bnn_trainer.py)."""
+        return self._randint((num_nets, n), n)
+
+    def shuffle(self, num_nets: int, n: int) -> torch.Tensor:
+        """One uniform random permutation of range(n) per net, int64
+        [num_nets, n]: an ensemble epoch's row order."""
+        return torch.stack([self.permutation(n) for _ in range(num_nets)])
+
+    def elite(self, n: int, num_elites: int) -> torch.Tensor:
+        """Which of the elite nets each of n model branches takes, uniform
+        in [0, num_elites) (algorithms/mbpo.py)."""
+        return self._randint((n,), num_elites)
+
+    def model(self, shape) -> torch.Tensor:
+        """N(0, 1) noise of a model step's Gaussian sample."""
+        return self._normal(shape)
+
 
 @dataclass
 class RunnerState:

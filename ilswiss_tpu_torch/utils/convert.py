@@ -26,7 +26,10 @@ maps:
     adam's moments trees shaped like the params; the Gaussian policy's
     free log-std is the leaf `log_std` [A];
   * the rnn discriminator's cells keep flax's gate names, each gate a
-    Dense (`cell_f0.ir` is `params/cell_f0/ir`).
+    Dense (`cell_f0.ir` is `params/cell_f0/ir`);
+  * the ensemble model's layers keep flax's [E, in, out] kernels and
+    [E, 1, out] biases untransposed; its optimizer is a plain optax.adam
+    and its elites become int64.
 
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
@@ -40,15 +43,18 @@ import numpy as np
 import torch
 
 from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLState
+from ilswiss_tpu_torch.algorithms.bnn_trainer import BNNState, BNNTrainer
 from ilswiss_tpu_torch.algorithms.ddpg import DDPGState
 from ilswiss_tpu_torch.algorithms.ppo import PPO, PPOState
 from ilswiss_tpu_torch.algorithms.discrete_sac import DiscreteSACState
 from ilswiss_tpu_torch.algorithms.dqn import DQNState
+from ilswiss_tpu_torch.algorithms.mbpo import MBPO, MBPORunnerState
 from ilswiss_tpu_torch.algorithms.sac import SAC, Adam, SACState, TwinQ
 from ilswiss_tpu_torch.algorithms.sac_v import SACVState
 from ilswiss_tpu_torch.algorithms.td3 import TD3State
 from ilswiss_tpu_torch.data.replay import ReplayState
 from ilswiss_tpu_torch.envs.base import EnvState
+from ilswiss_tpu_torch.models.bnn import InputNormalizer
 from ilswiss_tpu_torch.models.discriminators import MLPDisc
 from ilswiss_tpu_torch.models.policies import (
     GaussianPolicy, TanhGaussianPolicy,
@@ -487,6 +493,64 @@ def onpolicy_runner_from_jax(loop: OnPolicyLoop, jrunner, noise
         algo_state=ppo_state_from_jax(loop.algo, jrunner.algo_state),
         total_env_steps=int(np.asarray(jrunner.total_env_steps)),
         obs_rms=running_mean_std_from_jax(jrunner.obs_rms, device))
+
+
+# --- MBPO: the ensemble model and the runner --------------------------------
+def bnn_state_from_jax(trainer: BNNTrainer, jstate) -> BNNState:
+    """A BNNState on the trainer's device holding the JAX BNNState's
+    values: the ensemble's params, its Adam's moments and count, the
+    input moments, the elites and the holdout MSEs."""
+    state = trainer.init(0)
+    leaves = _module_leaves(state.params)
+    _load_leaves(leaves, jstate.params)
+    _load_adam_tree(state.opt_state, leaves, jstate.opt_state[0])
+    device = trainer.device
+    state.normalizer = InputNormalizer(
+        mean=_tensor(jstate.normalizer.mean, device, torch.float32),
+        std=_tensor(jstate.normalizer.std, device, torch.float32))
+    state.elites = _tensor(jstate.elites, device, torch.int64)
+    state.holdout_mse = _tensor(jstate.holdout_mse, device, torch.float32)
+    return state
+
+
+def bnn_state_to_numpy(state: BNNState) -> Dict[str, Any]:
+    """The port's BNNState in the JAX layouts: `params` as flax variables,
+    `opt_state` {"count", "mu", "nu"} with moment trees shaped like the
+    params, the normalizer's `mean` and `std`, `elites`, `holdout_mse`."""
+    leaves = _module_leaves(state.params)
+    return {
+        "params": _dump_leaves(leaves),
+        "opt_state": _dump_adam_tree(state.opt_state, leaves),
+        "normalizer": {"mean": state.normalizer.mean.cpu().numpy(),
+                       "std": state.normalizer.std.cpu().numpy()},
+        "elites": state.elites.cpu().numpy(),
+        "holdout_mse": state.holdout_mse.cpu().numpy(),
+    }
+
+
+def mbpo_runner_from_jax(mbpo: MBPO, jrunner, noise) -> MBPORunnerState:
+    """An MBPORunnerState on `mbpo`'s device holding the JAX runner's env
+    state, both rings, the inner SACState, the BNNState and the step
+    count, drawing from `noise` (the JAX runner's key has no
+    counterpart)."""
+    device = mbpo.device
+    return MBPORunnerState(
+        noise=noise,
+        env_state=env_state_from_jax(jrunner.env_state, device),
+        replay=replay_from_jax(jrunner.replay, device),
+        model_replay=replay_from_jax(jrunner.model_replay, device),
+        algo_state=sac_state_from_jax(mbpo.algo, jrunner.algo_state),
+        bnn_state=bnn_state_from_jax(mbpo.bnn, jrunner.bnn_state),
+        total_env_steps=int(np.asarray(jrunner.total_env_steps)))
+
+
+def mbpo_runner_to_numpy(runner: MBPORunnerState) -> Dict[str, Any]:
+    return {"env_state": env_state_to_numpy(runner.env_state),
+            "replay": replay_to_numpy(runner.replay),
+            "model_replay": replay_to_numpy(runner.model_replay),
+            "algo_state": sac_state_to_numpy(runner.algo_state),
+            "bnn_state": bnn_state_to_numpy(runner.bnn_state),
+            "total_env_steps": runner.total_env_steps}
 
 
 def metrics_to_numpy(metrics: Dict[str, torch.Tensor]

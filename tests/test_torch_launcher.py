@@ -212,8 +212,8 @@ def test_routing_raises_naming_the_roadmap_item(tmp_path):
         run(_variant(tmp_path, "no_such_env"), device="cpu")
     # every JAX experiment name is known; the unported ones raise
     assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
-    with pytest.raises(NotImplementedError, match="item 2.4"):
-        pexp.EXPERIMENTS["mbpo"](_variant(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.5"):
+        pexp.EXPERIMENTS["her"](_variant(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="item 2.6"):
         pexp.EXPERIMENTS["bc"](_variant(tmp_path), device="cpu")
     if not torch.cuda.is_available():      # the default device is the GPU
