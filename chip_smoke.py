@@ -181,7 +181,26 @@ exits non-zero on any failure; no phase catches its own error.
      device operations and device ms, rollouts of 1 and 15 steps at R =
      100,000 with the branches alive per step, an iteration, the peak
      device memory, the snapshot's size, save and load time, and the
-     spec's estimated wall time at 301 epochs.
+     spec's estimated wall time at 301 epochs;
+ 16. imitation without an adversary on hopper, from phase 9's run A
+     'last' policy, under build/chip_smoke_il/ with its own demos
+     listing: exp_specs/gen_expert/hopper.yaml (num_rollouts 4 -> 2),
+     exp_specs/bc/bc_hopper.yaml on those demos (2 epochs),
+     exp_specs/dagger/dagger_hopper.yaml seeded from them (1 epoch of
+     1000 steps, the 1000 pretraining steps kept; n % 8 of the seeded
+     rows printed) and exp_specs/eval_policy.yaml on hopper with
+     save_samples.  Launch counts exact (K1 500 / 2000 / 1125 / 1250; K2 =
+     K3 = K4 = 0), every value finite, DAgger's added rows holding the
+     expert's actions, K1 on each run's end state against its plain
+     version; a BC step's and a DAgger iteration's wall ms, device
+     operations and device ms;
+ 17. goal-conditioned learning on reach2d: her_sac_reach2d.yaml,
+     gcsl_reach2d.yaml and gcsl_reach_dis.yaml, 1 epoch each, under
+     build/chip_smoke_goal/: no kernel launch, every value finite,
+     TotalEnvSteps 16 x 350, a batch sampled from each run's hindsight
+     ring equal to the same draws on a CPU copy of it, exactly; an
+     iteration's and an inner step's wall ms, device operations and
+     device ms.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -195,6 +214,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -363,7 +383,8 @@ def run_spec(experiment: str, variant: dict, log_dir, counters: dict,
     from ilswiss_tpu_torch.launchers.experiments import EXPERIMENTS
 
     v = copy.deepcopy(variant)
-    v["rl_alg_params"]["num_epochs"] = num_epochs
+    if num_epochs is not None:     # None: the variant's own schedule
+        v["rl_alg_params"]["num_epochs"] = num_epochs
     v["log_dir"] = str(log_dir)
     v["print_to_console"] = False
     v.update(extra)
@@ -1093,18 +1114,10 @@ def other_trainers_phase(card: str, counters: dict) -> dict:
     import copy
     import shutil
 
-    from ilswiss_tpu_torch.launchers.variant import build_variants
-    import yaml
-
     out = ROOT / "build" / "chip_smoke_offpolicy"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     result = {}
-
-    def spec_variant(path):
-        with open(ROOT / path) as f:
-            (v,) = build_variants(yaml.safe_load(f))
-        return v
 
     def costs(name, algo, runner, batch_size, seed):
         ms, ops, dev_ms = train_step_costs(algo, runner, batch_size, seed)
@@ -1151,8 +1164,7 @@ def other_trainers_phase(card: str, counters: dict) -> dict:
         launches=e["launches"], epoch=e["row"], seconds=e["seconds"])
 
     # DDPG and SAC-V on hopper: phase 11's cut copy of TD3_SPEC
-    with open(ROOT / "build" / "chip_smoke_td3" / Path(TD3_SPEC).name) as f:
-        (td3,) = build_variants(yaml.safe_load(f))
+    td3 = spec_variant(Path("build") / "chip_smoke_td3" / Path(TD3_SPEC).name)
     reads = {"ddpg": ("ddpg_params", ("discount", "reward_scale",
                                       "policy_lr", "qf_lr",
                                       "soft_target_tau")),
@@ -1924,6 +1936,354 @@ def mbpo_phase(card: str, counters: dict, k1_check) -> dict:
             "seconds": seconds}
 
 
+# Phase 16: imitation without an adversary (hopper), from phase 9's run A
+IL_DIR = "build/chip_smoke_il"
+IL_ROLLOUTS = 2           # gen_expert's num_rollouts (the spec's 4, cut)
+BC_EPOCHS = 2
+DAGGER_CUT = {"num_epochs": 1, "num_steps_per_epoch": 1000}
+EVAL_PATH = 1000          # eval_policy's horizon on hopper (pendulum's 200)
+NO_LAUNCHES = {"planar_control_step": 0, "planar_forward": 0,
+               "fused_sac_chain": 0, "fused_policy_forward": 0,
+               "pgs_solve": 0}
+
+
+@contextlib.contextmanager
+def kept(*methods):
+    """Inside: for each (class, method name), every object the method was
+    called on, in order (`seen[name]`), and `seen["env_state"]`, the
+    state of the last `VectorEnv.step` (a run's end state, for K1)."""
+    from ilswiss_tpu_torch.envs.vector import VectorEnv
+
+    seen = {"env_state": None}
+    saved = [(VectorEnv, "step", VectorEnv.step)]
+    saved += [(cls, name, getattr(cls, name)) for cls, name in methods]
+
+    def wrap(name, fn):
+        def call(self, *args, **kwargs):
+            out = fn(self, *args, **kwargs)
+            if name == "step":
+                seen["env_state"] = out[0]
+            else:
+                seen.setdefault(name, []).append(self)
+            return out
+        return call
+
+    for cls, name, fn in saved:
+        setattr(cls, name, wrap(name, fn))
+    try:
+        yield seen
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def spec_variant(path: str) -> dict:
+    import yaml
+
+    from ilswiss_tpu_torch.launchers.variant import build_variants
+
+    with open(ROOT / path) as f:
+        (variant,) = build_variants(yaml.safe_load(f))
+    return variant
+
+
+def finite_row(what: str, log_dir, need) -> dict:
+    """progress.csv's one row: the `need` columns present, every value
+    finite; returns it as floats."""
+    rows = progress_rows(log_dir)
+    if not rows or not set(need) <= set(rows[-1]) or not all(
+            math.isfinite(float(v)) for r in rows for v in r.values()):
+        fail(f"{what}: progress.csv {rows}")
+    return {k: float(v) for k, v in rows[-1].items()}
+
+
+def imitation_phase(card: str, counters: dict, k1_check) -> dict:
+    """Phase 16: imitation without an adversary on hopper, at the specs'
+    widths, cut in length only, logs and demos under build/chip_smoke_il/
+    (its own demos listing; the committed one is not touched), the expert
+    the policy of phase 9's run A ('last', 256 x 2, 2 epochs of SAC):
+      - exp_specs/gen_expert/hopper.yaml with num_rollouts 4 -> 2 (4 envs,
+        500 steps each): K1 500, the demos finite, their episodes counted;
+      - exp_specs/bc/bc_hopper.yaml on those demos (traj_num 4, MLE),
+        num_epochs 201 -> 2 (100 steps an epoch, the 8-env evaluation of
+        1000 steps): K1 2000;
+      - exp_specs/dagger/dagger_hopper.yaml with num_epochs 201 -> 1 and
+        num_steps_per_epoch 8000 -> 1000 (125 iterations of 8 envs, K = 8
+        BC steps each), num_initial_train_steps 1000 kept, the same
+        expert, seeded from those demos: K1 125 + 1000; the ring holds the
+        seeded n rows (n % 8 recorded) and the 1000 added ones, whose
+        actions are the expert's on their pre-step observations;
+      - exp_specs/eval_policy.yaml on hopper from the same snapshot, with
+        save_samples (2000 steps of 8 envs): K1 1000 + 250, the samples
+        finite.
+    Every run: exact launch counts (K2 = K3 = K4 = 0), finite metrics, and
+    K1 on its end state against its plain version (phase 3's check).
+    Times a BC step and a DAgger iteration (wall, device operations and
+    device ms) and reports the epochs' TrainTime."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ilswiss_tpu_torch.algorithms.dagger import DAggerLoop
+    from ilswiss_tpu_torch.data.demo import load_demos_npz
+    from ilswiss_tpu_torch.data.replay import replay_sample
+    from ilswiss_tpu_torch.runtime.loop import Noise
+    from ilswiss_tpu_torch.runtime.offline import OfflineLoop
+
+    expert = ROOT / "build" / "chip_smoke" / "a" / "checkpoints" / "last"
+    if not (expert / "state.pt").exists():
+        fail(f"imitation: phase 9's snapshot {expert} is missing")
+    out = ROOT / IL_DIR
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    listing = out / "demos_listing.yaml"
+    common = dict(demos_listing=str(listing), print_to_console=False)
+    result = {"k1_ms": {}, "k1_err": {}, "launches": {}, "seconds": {}}
+
+    def run(name, what, variant, want, end_state=None):
+        with kept((OfflineLoop, "init"), (DAggerLoop, "init")) as seen:
+            runner, launches, seconds = run_spec(
+                name, variant, out / what, counters, None, **common)
+        want = dict(NO_LAUNCHES, planar_control_step=want)
+        check_launches(f"imitation {what}", (("(as cut)", launches, want),))
+        state = end_state(runner) if end_state else seen["env_state"]
+        n = state.obs.shape[0]
+        ms, err = k1_on_end_states(
+            f"imitation {what}", types.SimpleNamespace(env_state=state), n,
+            counters["planar_control_step"], k1_check, 43, sizes=(n,))
+        result["k1_ms"][f"{what}_b{n}"] = ms[n]
+        result["k1_err"][f"{what}_b{n}"] = err[n]
+        result["launches"][what] = launches
+        result["seconds"][what] = seconds
+        print(f"imitation {what}: {seconds:.1f} s for the call, on {card}")
+        return runner, seen
+
+    # gen_expert: the snapshot's deterministic policy on 4 envs
+    gen = spec_variant("exp_specs/gen_expert/hopper.yaml")
+    gen.update(expert_path=str(expert), num_rollouts=IL_ROLLOUTS,
+               save_path=str(out / "hopper_expert.npz"))
+    steps = -(-IL_ROLLOUTS * gen["max_path_length"]
+              // gen["env_specs"]["env_num"])
+    path, _ = run("gen_expert", "gen_expert", gen, steps)
+    demos = load_demos_npz(path)
+    episodes = int(torch.unique(demos.ep_id).numel())
+    mean_rew = float(demos.data["reward"].mean())
+    if demos.size != steps * gen["env_specs"]["env_num"] or not all(
+            bool(torch.isfinite(v).all()) for v in demos.data.values()):
+        fail(f"imitation gen_expert: {demos.size} rows, or not finite")
+    print(f"imitation gen_expert: {demos.size} transitions in {episodes} "
+          f"episodes, mean step reward {mean_rew:.4f}")
+
+    # BC on those demos
+    bc = spec_variant("exp_specs/bc/bc_hopper.yaml")
+    bc["rl_alg_params"]["num_epochs"] = BC_EPOCHS
+    rl = bc["rl_alg_params"]
+    bc_runner, seen = run("bc", "bc", bc, BC_EPOCHS * rl["max_path_length"])
+    bc_rows = progress_rows(out / "bc")
+    row = finite_row("imitation bc", out / "bc",
+                     ["trainer/bc_loss", "TrainTime"] + EVAL_COLUMNS[:5])
+    if len(bc_rows) != BC_EPOCHS:
+        fail(f"imitation bc: {len(bc_rows)} epochs")
+    algo = seen["init"][-1].algo
+    noise = Noise(47, bc_runner.expert.ep_id.device)
+    bs = rl["batch_size"]
+
+    def bc_step():
+        batch = replay_sample(bc_runner.expert, noise.replay(bs))
+        algo.train_step(bc_runner.algo_state, batch,
+                        *algo.train_noise(noise, bs))
+
+    bc_ms, bc_ops, bc_dev = step_costs(bc_step)
+    print("imitation bc epochs: " + "; ".join(
+        f"bc_loss {float(r['trainer/bc_loss']):.5g}, AverageReturn "
+        f"{float(r['AverageReturn']):.5g}, TrainTime "
+        f"{float(r['TrainTime']):.3f} s ({rl['num_train_steps_per_train_call']}"
+        f" steps), EvalTime {float(r['EvalTime']):.3f} s" for r in bc_rows)
+        + f"; a BC step (batch {bs}, 256 x 2, MLE): {bc_ms:.3f} ms of wall "
+        f"time, {bc_ops:.0f} device operations, {bc_dev:.3f} ms of device "
+        f"time; on {card}")
+
+    # DAgger seeded from those demos, querying the same expert
+    dag = spec_variant("exp_specs/dagger/dagger_hopper.yaml")
+    dag["expert_policy_path"] = str(expert)
+    dag["dagger_params"].update(DAGGER_CUT)
+    dp = dag["dagger_params"]
+    n_env = max(dag["env_specs"]["env_num"], 8)
+    iters = dp["num_steps_per_epoch"] // n_env
+    runner, seen = run("dagger", "dagger", dag,
+                       iters + dp["max_path_length"],
+                       end_state=lambda r: r.env_state)
+    row = finite_row("imitation dagger", out / "dagger",
+                     ["trainer/bc_loss", "TrainTime"] + EVAL_COLUMNS[:6])
+    agg = runner.aggregate
+    added = iters * n_env
+    n = agg.size - added
+    cap = agg.data["reward"].shape[0]
+    if agg.ptr != (n + added) % cap or n <= 0:
+        fail(f"imitation dagger: ring ptr {agg.ptr}, size {agg.size}")
+    loop = seen["init"][-1]
+    rows = slice(n, n + added)
+    want = torch.cat([loop.expert_fn(o) for o in
+                      agg.data["obs"][rows].split(n_env)])
+    relabel_err = float((agg.data["action"][rows] - want).abs().max())
+    if not torch.allclose(agg.data["action"][rows], want, rtol=1e-5,
+                          atol=1e-6):
+        fail(f"imitation dagger: stored actions are {relabel_err:.3g} from "
+             f"the expert's")
+    dag_ms, dag_ops, dag_dev = step_costs(lambda: loop._iter(runner), 5, 1)
+    print(f"imitation dagger: seeded with n = {n} demo rows (n % {n_env} = "
+          f"{n % n_env}), cursor now {agg.ptr} of {cap}; the {added} added "
+          f"rows hold the expert's actions (max |err| {relabel_err:.3g}); "
+          f"epoch: bc_loss {row['trainer/bc_loss']:.5g}, AverageReturn "
+          f"{row['AverageReturn']:.5g}, TrainTime {row['TrainTime']:.3f} s "
+          f"({iters} iterations), EvalTime {row['EvalTime']:.3f} s; a DAgger "
+          f"iteration (K1, the expert's relabeling, "
+          f"{loop.grad_steps_per_iter} BC steps): {dag_ms:.3f} ms of wall "
+          f"time, {dag_ops:.0f} device operations, {dag_dev:.3f} ms of "
+          f"device time; on {card}")
+
+    # eval_policy with save_samples, from the same snapshot
+    ev = spec_variant("exp_specs/eval_policy.yaml")
+    ev.update(policy_checkpoint=str(expert), max_path_length=EVAL_PATH,
+              env_specs={"env_name": "hopper", "env_kwargs": {},
+                         "env_num": 8})
+    stats, _ = run("eval_policy", "eval_policy", ev,
+                   EVAL_PATH + ev["num_eval_steps"] // 8)
+    samples = np.load(out / "eval_policy" / "eval_samples.npz")
+    if samples["obs"].shape != (ev["num_eval_steps"], 11) or not all(
+            np.isfinite(samples[k]).all() for k in samples.files) or not all(
+            math.isfinite(v) for v in stats.values()):
+        fail(f"imitation eval_policy: samples {samples['obs'].shape}, stats "
+             f"{stats}")
+    print(f"imitation eval_policy: {json.dumps(stats)}; "
+          f"{samples['obs'].shape[0]} samples saved, on {card}")
+    result.update(demos=demos.size, demo_episodes=episodes,
+                  seeded_rows=n, seeded_rows_mod_b=n % n_env,
+                  relabel_err=relabel_err, bc_step_ms=bc_ms, bc_ops=bc_ops,
+                  bc_device_ms=bc_dev, dagger_iter_ms=dag_ms,
+                  dagger_ops=dag_ops, dagger_device_ms=dag_dev,
+                  bc_train_s=[float(r["TrainTime"]) for r in bc_rows],
+                  dagger_train_s=row["TrainTime"])
+    return result
+
+
+# Phase 17: goal-conditioned learning on reach2d, 1 epoch of each spec
+GOAL_SPECS = {"her_sac": ("her", "exp_specs/her/her_sac_reach2d.yaml"),
+              "gcsl": ("gcsl", "exp_specs/gcsl/gcsl_reach2d.yaml"),
+              "gcsl_dis": ("gcsl", "exp_specs/gcsl/gcsl_reach_dis.yaml")}
+
+
+def goal_phase(card: str, counters: dict) -> dict:
+    """Phase 17: her_sac_reach2d.yaml, gcsl_reach2d.yaml and
+    gcsl_reach_dis.yaml through `EXPERIMENTS["her"]` / `["gcsl"]` on the
+    card, 1 epoch each (the specs' 20, cut), logs under
+    build/chip_smoke_goal/: 16 envs, 512 episode slots, batch 128, K = 8,
+    a warmup of 2 x 50 iterations and 250 training iterations.  reach2d
+    is analytic: no kernel may launch.  Fails unless every progress.csv
+    value is finite with TotalEnvSteps 16 x 350, and a batch sampled from
+    the run's hindsight ring on the card holds the same rows as the same
+    draws give on a CPU copy of the ring, exactly.  Times an HER iteration
+    (one env step, 8 SAC steps), an HER SAC step and a GCSL step (wall,
+    device operations and device ms)."""
+    import shutil
+
+    import torch
+
+    from ilswiss_tpu_torch.algorithms.her import HERLoop
+    from ilswiss_tpu_torch.data.her import (
+        HindsightReplayBuffer, HindsightReplayState,
+    )
+    from ilswiss_tpu_torch.envs import make
+    from ilswiss_tpu_torch.envs.wrappers import DiscretEnv
+    from ilswiss_tpu_torch.runtime.loop import Noise
+
+    out = ROOT / "build" / "chip_smoke_goal"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    result = {"launches": {}, "seconds": {}, "rows": {}}
+    for what, (name, path) in GOAL_SPECS.items():
+        variant = spec_variant(path)
+        with kept((HERLoop, "init")) as seen:
+            runner, launches, seconds = run_spec(
+                name, variant, out / what, counters, 1)
+        check_launches(f"goal {what}", (("(1 epoch)", launches,
+                                         NO_LAUNCHES),))
+        loop = seen["init"][-1]
+        rl = variant["rl_alg_params"]
+        n = loop.vec_env.num_envs
+        steps = n * (loop.config.min_episodes_before_training
+                     * loop.vec_env.env.max_episode_steps
+                     + rl["num_steps_per_epoch"] // n)
+        metric = "trainer/qf1_loss" if name == "her" else "trainer/gcsl_loss"
+        row = finite_row(f"goal {what}", out / what,
+                         [metric] + EVAL_COLUMNS[:6])
+        if row["TotalEnvSteps"] != steps or runner.total_env_steps != steps:
+            fail(f"goal {what}: TotalEnvSteps {row['TotalEnvSteps']}, "
+                 f"expected {steps}")
+
+        # a batch from the card's ring against the same on a CPU copy
+        bs = loop.config.batch_size
+        draws = Noise(53, "cpu").hindsight(bs, n)
+        env = loop.vec_env.env
+        cpu_env = make("reach2d", device="cpu",
+                       max_episode_steps=env.max_episode_steps)
+        if isinstance(env, DiscretEnv):
+            cpu_env = DiscretEnv(
+                cpu_env, possible_actions=env.base_actions.cpu().numpy())
+        buf = loop.buffer
+        cpu_buf = HindsightReplayBuffer(cpu_env, n, buf.S, buf.T,
+                                        buf.relabel_type, buf.her_ratio)
+        r = runner.replay
+        cpu_ring = HindsightReplayState(
+            data={k: v.cpu() for k, v in r.data.items()},
+            ep_len=r.ep_len.cpu(), cur_slot=r.cur_slot.cpu(),
+            cur_t=r.cur_t.cpu(), completed=r.completed.cpu())
+        dev = r.ep_len.device
+        got = buf.sample(r, tuple(d.to(dev) for d in draws), bs,
+                         return_horizon=loop.return_horizon)
+        want = cpu_buf.sample(cpu_ring, draws, bs,
+                              return_horizon=loop.return_horizon)
+        bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        if bad or set(got) != set(want):
+            fail(f"goal {what}: a batch from the card's ring differs from "
+                 f"the CPU copy's in {bad}")
+        episodes = int(r.completed.sum())
+
+        # costs on the end state
+        noise = Noise(59, dev)
+        algo = loop.algo
+
+        def step():
+            batch = buf.sample(r, noise.hindsight(bs, n), bs,
+                               return_horizon=loop.return_horizon)
+            algo.train_step(runner.algo_state, batch,
+                            *algo.train_noise(noise, bs))
+
+        step_ms, step_ops, step_dev = step_costs(step)
+        it_ms, it_ops, it_dev = step_costs(lambda: loop._train_iter(runner),
+                                           5, 1)
+        print(f"goal {what} epoch 0 ({seconds:.1f} s for the call): "
+              + ", ".join(f"{k} {row[k]:.6g}" for k in [metric]
+                          + EVAL_COLUMNS[:5] + ["TrainTime", "EvalTime"])
+              + f"; {episodes} episodes completed; a sampled batch of {bs} "
+              f"equals the CPU copy's exactly; a {name} step: "
+              f"{step_ms:.3f} ms of wall time, {step_ops:.0f} device "
+              f"operations, {step_dev:.3f} ms of device time; an iteration "
+              f"(one env step, {loop.grad_steps_per_iter} steps): "
+              f"{it_ms:.3f} ms, {it_ops:.0f} operations, {it_dev:.3f} ms of "
+              f"device time; on {card}")
+        result["launches"][what] = launches
+        result["seconds"][what] = seconds
+        result["rows"][what] = {k: row[k] for k in (
+            metric, "AverageReturn", "TrainTime", "EvalTime")}
+        result[what] = {"step_ms": step_ms, "step_ops": step_ops,
+                        "step_device_ms": step_dev, "iteration_ms": it_ms,
+                        "iteration_ops": it_ops,
+                        "iteration_device_ms": it_dev}
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2653,6 +3013,10 @@ def main() -> int:
     gail_rnn = rnn_gail_phase(card, counters, k1_step_check)
     # ---- 15. MBPO: mbpo_hopper.yaml through the launcher ------------------
     mbpo = mbpo_phase(card, counters, k1_step_check)
+    # ---- 16. gen_expert, BC, DAgger and eval_policy on hopper -------------
+    imitation = imitation_phase(card, counters, k1_step_check)
+    # ---- 17. HER and GCSL on reach2d --------------------------------------
+    goal = goal_phase(card, counters)
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -2683,7 +3047,10 @@ def main() -> int:
                                 "max_abs_err": gail_rnn["k1_err"][b]}
                       for b, v in gail_rnn["k1_ms"].items()},
          "mbpo": {f"b{b}": {"ms": v, "max_abs_err": mbpo["k1_err"][b]}
-                  for b, v in mbpo["k1_ms"].items()}},
+                  for b, v in mbpo["k1_ms"].items()},
+         "imitation": {run: {"ms": v,
+                             "max_abs_err": imitation["k1_err"][run]}
+                       for run, v in imitation["k1_ms"].items()}},
         {"name": "fused_sac_chain", "route": "cuda",
          "source": "ilswiss_tpu_torch/csrc/fused_sac.cu",
          "replaces": "ilswiss_tpu/ops/fused_sac.py:158",
@@ -2738,15 +3105,16 @@ def main() -> int:
     # the ant main path's; K2 and K3 run on all three, and the line carries
     # the ant path's; `launches_by_path` adds the launcher's run A, the
     # GAIL launcher's run A, TD3's and DQN's run A, the 1-epoch runs of
-    # DDPG, SAC-V and discrete SAC, PPO's run, the rnn GAIL's run A and
-    # MBPO's run
+    # DDPG, SAC-V and discrete SAC, PPO's run, the rnn GAIL's run A,
+    # MBPO's run, phase 16's four runs and phase 17's three
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
              "gail": gail["launches"], "td3": td3["launches"],
              **{name: others[name]["launches"]
                 for name in ("ddpg", "sac_v", "dqn", "discrete_sac")},
              "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"],
-             "mbpo": mbpo["launches"]}
+             "mbpo": mbpo["launches"], **imitation["launches"],
+             **goal["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -4,8 +4,9 @@
 
 Fixed `[capacity, ...]` tensors, a write cursor and per-row episode ids
 `env_idx * 2**20 + env_ep`.  The capacity is rounded up to a multiple of
-the write batch so one write never splits across the wrap.  Unlike the
-JAX functions, `replay_add` writes into the ring's tensors IN PLACE and
+the write batch so a write from a cursor at a multiple of it never splits
+across the wrap (DAgger's ring, seeded with a demo count, may).  Unlike
+the JAX functions, `replay_add` writes into the ring's tensors IN PLACE and
 returns the same state, which saves a copy of the ring per write; the
 cursor and size are host integers, since every write has the same size
 (`replay_add_masked`'s reads its count from the device once).
@@ -66,14 +67,20 @@ def replay_init(capacity: int, obs_size: int, action_size: int,
 
 def replay_add(state: ReplayState, tr: Transition) -> ReplayState:
     """Store one vectorized-env batch of B transitions at the cursor, in
-    place.  Requires capacity % B == 0 (`replay_init` guarantees it)."""
+    place.  Requires capacity % B == 0 (`replay_init` guarantees it).
+
+    A cursor that is not a multiple of B (DAgger's ring, seeded with a
+    demo count) splits the write at the wrap: the rows that do not fit
+    before it go to the front.  The JAX `dynamic_update_slice` clamps its
+    start instead, so there the write lands at capacity - B, over rows
+    written just before (ROADMAP.md section 3); the port does not copy
+    that.  A cursor at a multiple of B writes one slice, as before."""
     capacity = state.data["reward"].shape[0]
     batch = tr.reward.shape[0]
     if capacity % batch or batch != state.env_ep.shape[0]:
         raise ValueError(f"write batch {batch} does not fit the ring "
                          f"(capacity {capacity}, "
                          f"write batch {state.env_ep.shape[0]})")
-    rows = slice(state.ptr, state.ptr + batch)
     updates = {
         "obs": tr.obs,
         "action": tr.action,
@@ -81,10 +88,16 @@ def replay_add(state: ReplayState, tr: Transition) -> ReplayState:
         "next_obs": tr.next_obs,
         "terminal": tr.terminal.to(torch.float32),
     }
-    for k, v in updates.items():
-        state.data[k][rows] = v
     env_idx = torch.arange(batch, dtype=torch.int32, device=tr.reward.device)
-    state.ep_id[rows] = env_idx * _EP_STRIDE + state.env_ep
+    updates["ep_id"] = env_idx * _EP_STRIDE + state.env_ep
+    first = min(batch, capacity - state.ptr)
+    for k, v in updates.items():
+        dst = state.ep_id if k == "ep_id" else state.data[k]
+        if first == batch:
+            dst[state.ptr:state.ptr + batch] = v
+        else:
+            dst[state.ptr:] = v[:first]
+            dst[:batch - first] = v[first:]
     state.env_ep += tr.done.to(torch.int32)
     state.ptr = (state.ptr + batch) % capacity
     state.size = min(state.size + batch, capacity)

@@ -2,8 +2,8 @@
 
 `make(name)` returns a static `Environment`, `make_vec(name, num_envs)`
 the lockstep vectorized env.  Ported: the MuJoCo locomotion models,
-pendulum, mountain and cartpole.  Not ported yet: reach2d (ROADMAP
-section 1 item 2.5) and pendulum_pixels (item 2.7).
+pendulum, mountain, cartpole and the goal env reach2d.  Not ported yet:
+pendulum_pixels (ROADMAP section 1 item 2.7).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from ilswiss_tpu_torch.envs import locomotion
 from ilswiss_tpu_torch.envs.classic import (
     CartPole, MountainCarContinuous, Pendulum,
 )
+from ilswiss_tpu_torch.envs.goal import GoalReach2D
 
 ENV_REGISTRY: Dict[str, Callable[..., Environment]] = {}
 
@@ -28,6 +29,7 @@ def register(name: str, ctor: Callable[..., Environment]) -> None:
 register("pendulum", Pendulum)
 register("mountain", MountainCarContinuous)
 register("cartpole", CartPole)
+register("reach2d", GoalReach2D)
 locomotion.register_all(register)
 
 

@@ -24,11 +24,12 @@ class EnvState:
     """Batched per-env dynamic state.
 
     internal: env-specific physics state, a tuple of [B, ...] tensors.
-    obs: current observation [B, obs_size] (what the policy sees next).
+    obs: current observation [B, obs_size] (what the policy sees next),
+      or a goal env's dict of such tensors (envs/goal.py).
     t: int32 [B] step count within the current episode."""
 
     internal: Tuple[torch.Tensor, ...]
-    obs: torch.Tensor
+    obs: Any
     t: torch.Tensor
 
 
@@ -38,7 +39,7 @@ class StepOutput:
     termination (no bootstrap), `truncation` a time-limit cut."""
 
     state: EnvState
-    obs: torch.Tensor
+    obs: Any
     reward: torch.Tensor
     terminal: torch.Tensor
     truncation: torch.Tensor
@@ -86,7 +87,9 @@ class Environment:
     # --- public API -----------------------------------------------------
     def reset(self, noise: Tuple[torch.Tensor, ...]) -> EnvState:
         internal, obs = self._reset(noise)
-        t = torch.zeros(obs.shape[0], dtype=torch.int32, device=obs.device)
+        first = next(iter(obs.values())) if isinstance(obs, dict) else obs
+        t = torch.zeros(first.shape[0], dtype=torch.int32,
+                        device=first.device)
         return EnvState(internal=internal, obs=obs, t=t)
 
     def step(self, state: EnvState, action: torch.Tensor) -> StepOutput:

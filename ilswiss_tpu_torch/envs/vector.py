@@ -10,7 +10,7 @@ noise passed in, and `torch.where` keeps it only where the episode ended.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -21,10 +21,10 @@ from ilswiss_tpu_torch.envs.base import Environment, EnvState
 class Transition:
     """One batched transition [B, ...] as stored into replay."""
 
-    obs: torch.Tensor
+    obs: Any                 # [B, obs_size], or a goal env's dict
     action: torch.Tensor
     reward: torch.Tensor
-    next_obs: torch.Tensor
+    next_obs: Any
     terminal: torch.Tensor   # true termination -> no bootstrap
     done: torch.Tensor       # terminal | truncation -> episode boundary
 
@@ -32,6 +32,14 @@ class Transition:
 def _select(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor
             ) -> torch.Tensor:
     return torch.where(done.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def _select_obs(done: torch.Tensor, a, b):
+    """`_select` on an observation, or on each entry of a dict
+    observation, as the JAX `jax.tree.map` does."""
+    if isinstance(a, dict):
+        return {k: _select(done, a[k], b[k]) for k in a}
+    return _select(done, a, b)
 
 
 class VectorEnv:
@@ -56,7 +64,7 @@ class VectorEnv:
         new_state = EnvState(
             internal=tuple(_select(done, r, s) for r, s in
                            zip(fresh.internal, out.state.internal)),
-            obs=_select(done, fresh.obs, out.state.obs),
+            obs=_select_obs(done, fresh.obs, out.state.obs),
             t=_select(done, fresh.t, out.state.t),
         )
         transition = Transition(

@@ -7,8 +7,10 @@ the reset noise (`sample_reset_noise` is the inner env's), `step` the
 batched state and Box action, so `VectorEnv`'s branchless autoreset
 selects a wrapped state as it selects the inner one.  The reference's
 wrappers are rlkit/envs/wrappers.py:53 (ScaledEnv) and :143 (MinmaxEnv);
-the absorbing states are DAC's (adv_irl.py:144-171).  `FrameStackEnv`
-and `DiscretEnv` come with ROADMAP.md section 1 items 2.7 and 2.5.
+the absorbing states are DAC's (adv_irl.py:144-171).  `DiscretEnv`
+(JAX wrappers.py:200-240) turns a Box env's actions into indices of an
+action table.  `FrameStackEnv` comes with ROADMAP.md section 1 item 2.7.
+A wrapper of a goal env forwards its `goal_size` and `compute_reward`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,11 @@ class _DelegatingEnv(Environment):
         self.action_low = inner.action_low
         self.action_high = inner.action_high
         self.device = inner.device
+        # the goal-env surface (HER, GCSL), where the inner env has one
+        if hasattr(inner, "goal_size"):
+            self.goal_size = inner.goal_size
+        if hasattr(inner, "compute_reward"):
+            self.compute_reward = inner.compute_reward
 
     def sample_reset_noise(self, n: int, generator: torch.Generator):
         return self.inner.sample_reset_noise(n, generator)
@@ -152,3 +159,44 @@ class AbsorbingEnv(_DelegatingEnv):
             terminal=in_absorbing,
             truncation=torch.logical_and(out.truncation,
                                          torch.logical_not(entered)))
+
+
+class DiscretEnv(_DelegatingEnv):
+    """Continuous -> discrete actions (JAX `DiscretEnv`, wrappers.py:
+    200-240; reference rlkit/envs/wrappers.py:411-446): an action is an
+    index [B] into `base_actions`, a meshgrid of `granularity` levels per
+    action dim between the Box bounds (numpy's `meshgrid` order), or the
+    rows of an explicit `possible_actions` table.  `scale_action` passes
+    the index through, and the inner env steps on the table's rows."""
+
+    def __init__(self, inner: Environment, granularity: int = 10,
+                 possible_actions=None):
+        super().__init__(inner)
+        if inner.discrete:
+            raise ValueError("DiscretEnv: the inner env is already discrete")
+        if possible_actions is not None:
+            base = np.asarray(possible_actions, np.float32)
+            if base.ndim == 1:
+                base = base[:, None]
+        else:
+            axes = [np.linspace(lo, hi, granularity) for lo, hi in zip(
+                np.atleast_1d(inner.action_low),
+                np.atleast_1d(inner.action_high))]
+            mesh = np.meshgrid(*axes)
+            base = np.stack([a.ravel() for a in mesh], axis=-1)
+        self.base_actions = self._vector(base)
+        self.discrete = True
+        self.action_size = int(base.shape[0])  # number of discrete actions
+        self.action_low = None
+        self.action_high = None
+
+    def reset(self, noise) -> EnvState:
+        return self.inner.reset(noise)
+
+    def step(self, state: EnvState, action: torch.Tensor) -> StepOutput:
+        cont = self.base_actions[action.to(torch.int64)]
+        return self.inner.step(state, cont.reshape(
+            (-1,) + np.shape(self.inner.action_low)))
+
+    def scale_action(self, normalized: torch.Tensor) -> torch.Tensor:
+        return normalized  # discrete indices pass through

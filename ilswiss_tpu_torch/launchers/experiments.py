@@ -1,6 +1,7 @@
 """Variant-dict -> training run (counterpart:
 ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL,
-PPO, MBPO and policy evaluation).
+PPO, MBPO, BC, DAgger, expert demo generation, HER, GCSL and policy
+evaluation).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -23,9 +24,12 @@ ROADMAP.md section 1 that ports it.  Nothing falls back.
 
 from __future__ import annotations
 
+import importlib
 import os
 import time
 from typing import Any, Callable, Dict
+
+import numpy as np
 
 from ilswiss_tpu_torch.envs import ENV_REGISTRY, make, make_vec
 from ilswiss_tpu_torch.envs.vector import VectorEnv
@@ -65,7 +69,6 @@ GYM_ENV_IDS: Dict[str, str] = {
 # device envs of the JAX registry that the port has not ported yet, with
 # the ROADMAP.md section 1 item that ports each
 UNPORTED_DEVICE_ENVS: Dict[str, str] = {
-    "reach2d": "2.5",
     "pendulum_pixels": "2.7",
 }
 HOST_ITEM = "2.8"
@@ -161,6 +164,28 @@ def _resolve_demo_path(variant: Dict) -> str:
         raise KeyError(f"expert '{name}' not in {listing_path}; "
                        f"known: {sorted(listing)}")
     return listing[name]["file_path"]
+
+
+def _refuse_resume(variant: Dict, name: str) -> None:
+    """The JAX launchers of PPO, MBPO, BC, DAgger, gen_expert, HER and
+    GCSL never read `load_params`, so a resume is silently dropped there
+    and the run overwrites its snapshots; the port raises ValueError."""
+    if variant.get("load_params"):
+        raise ValueError(
+            f"load_params is set, but {name} has no resume: the JAX "
+            f"launcher never reads load_params for {name}, and the port "
+            f"adds none")
+
+
+def _load_demos(variant: Dict, device):
+    """The demo buffer of `demo_path` / `expert_name`, cut to its first
+    `traj_num` episodes where that is set."""
+    from ilswiss_tpu_torch.data.demo import load_demos_npz, subsample_trajs
+
+    demos = load_demos_npz(_resolve_demo_path(variant), device=device)
+    if variant.get("traj_num"):
+        demos = subsample_trajs(demos, int(variant["traj_num"]))
+    return demos
 
 
 def _grad_steps_per_iter(rl: Dict, num_envs: int) -> int:
@@ -515,8 +540,7 @@ def run_adv_irl(variant: Dict[str, Any], device=None):
     from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLConfig
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
     from ilswiss_tpu_torch.data.demo import (
-        demo_obs_stats, load_demos_npz, minmax_demos, scale_demos,
-        subsample_trajs, wrap_absorbing_demos,
+        demo_obs_stats, minmax_demos, scale_demos, wrap_absorbing_demos,
     )
     from ilswiss_tpu_torch.envs.wrappers import (
         AbsorbingEnv, MinmaxEnv, ScaledEnv,
@@ -534,9 +558,7 @@ def run_adv_irl(variant: Dict[str, Any], device=None):
     _route_host(variant, env_name)
     wrap_absorbing = bool(p.get("wrap_absorbing", False))
 
-    demos = load_demos_npz(_resolve_demo_path(variant), device=device)
-    if variant.get("traj_num"):
-        demos = subsample_trajs(demos, int(variant["traj_num"]))
+    demos = _load_demos(variant, device)
     env = make(env_name, device=device, **env_kwargs)
     if bool(variant.get("scale_env_with_demo_stats", False)):
         stats = demo_obs_stats(demos)
@@ -635,18 +657,18 @@ def run_adv_irl(variant: Dict[str, Any], device=None):
 def run_eval_policy(variant: Dict[str, Any], device=None):
     """Standalone policy evaluation from a checkpoint (reference
     run_scripts/evaluate_policy.py + exp_specs/eval_policy.yaml):
-    rollouts of the policy of a params-only snapshot ('best'), return
-    stats."""
+    rollouts of the policy of a params-only ('best') or a full snapshot,
+    return stats; with `save_samples`, num_eval_steps // num_envs steps
+    of every env saved as demos to <log_dir>/eval_samples.npz."""
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
 
-    if bool(variant.get("save_samples", False)):
-        raise _not_ported("eval_policy's save_samples (data/demo.py and "
-                          "runtime/collector.py)", "2.6")
     device = resolve_device(device)
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
         variant, "eval_policy")
     max_path_length = int(variant.get(
         "max_path_length", rl.get("max_path_length", 1000)))
+    num_eval_steps = int(variant.get(
+        "num_eval_steps", rl.get("num_steps_per_eval", 2000)))
     vec = make_vec(env_name, num_envs=max(num_envs, 8), device=device,
                    **env_kwargs)
     sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
@@ -654,19 +676,34 @@ def run_eval_policy(variant: Dict[str, Any], device=None):
               num_hidden_layers=int(variant.get(
                   "policy_num_hidden_layers", 2)),
               device=device)
-    algo_state = restore_checkpoint(
-        variant["policy_checkpoint"],
-        {"algo_state": sac.init(0)})["algo_state"]
+    # the algo state of a params-only snapshot ('best') or of a full one
+    algo_state = restore_subtree(variant["policy_checkpoint"], sac.init(0))
+    deterministic = bool(variant.get("eval_deterministic", True))
     noise = Noise(seed, device)
-    if bool(variant.get("eval_deterministic", True)):
-        act = lambda s, o: sac.act(s, o, deterministic=True)  # noqa: E731
-    else:
-        act = lambda s, o: sac.act(  # noqa: E731
-            s, o, noise.act((o.shape[0], sac.action_size)))
-    evaluator = make_evaluator(vec, act, max_path_length)
+
+    def act(obs, noise):
+        if deterministic:
+            return sac.act(algo_state, obs, deterministic=True)
+        return sac.act(algo_state, obs, *sac.act_noise(noise, obs.shape[0]))
+
+    evaluator = make_evaluator(vec, lambda s, o: act(o, noise),
+                               max_path_length)
     stats = evaluator(algo_state, noise)
     logger.record_dict(stats)
     logger.dump_tabular(0)
+
+    if bool(variant.get("save_samples", False)):
+        # the policy's transitions as a demo file (JAX
+        # experiments.py:902-917), from a generator of their own
+        from ilswiss_tpu_torch.data.demo import save_demos_npz
+        from ilswiss_tpu_torch.runtime.collector import collect_transitions
+
+        demos = collect_transitions(
+            vec, act, max(1, num_eval_steps // vec.num_envs),
+            Noise(seed + 1, device))
+        out = os.path.join(logger.log_dir, "eval_samples.npz")
+        save_demos_npz(out, demos)
+        logger.log(f"saved {demos.size} transitions to {out}")
     logger.close()
     return stats
 
@@ -688,10 +725,7 @@ def run_ppo(variant: Dict[str, Any], device=None):
         OnPolicyConfig, OnPolicyLoop,
     )
 
-    if variant.get("load_params"):
-        raise ValueError(
-            "load_params is set, but PPO has no resume: the JAX launcher "
-            "never reads load_params for PPO, and the port adds none")
+    _refuse_resume(variant, "PPO")
     device = resolve_device(device)
     seed, vec, rl, logger = _on_device_vec(variant, "ppo", device)
     p = _alg(variant, "ppo_params")
@@ -777,10 +811,7 @@ def run_mbpo(variant: Dict[str, Any], device=None):
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
     from ilswiss_tpu_torch.envs.terminals import get_terminal_func
 
-    if variant.get("load_params"):
-        raise ValueError(
-            "load_params is set, but MBPO has no resume: the JAX launcher "
-            "never reads load_params for MBPO, and the port adds none")
+    _refuse_resume(variant, "MBPO")
     device = resolve_device(device)
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
         variant, "mbpo")
@@ -867,6 +898,389 @@ def run_mbpo(variant: Dict[str, Any], device=None):
     return runner
 
 
+# --------------------------------------------------------------------------
+def _run_epochs(train_epoch: Callable, evaluator, runner, rl: Dict,
+                logger: Logger, seed: int, device):
+    """The epoch loop of the BC, DAgger, HER and GCSL launchers:
+    `train_epoch(runner) -> (runner, metrics)`, then the evaluation from
+    a generator of its own (the JAX PRNGKey(seed + epoch + 1)); each epoch
+    logs the trainer's metrics, the evaluation's keys, TotalEnvSteps
+    (where the runner counts env steps), TrainTime and EvalTime, and hands
+    the runner to a `SnapshotManager` (gap `freq_saving`, 'last' the
+    whole runner, 'best' its algo state, as the JAX launchers save)."""
+    snap = SnapshotManager(
+        logger.log_dir, gap=int(rl.get("freq_saving", 10)),
+        best_state_fn=lambda r: {"algo_state": r.algo_state})
+    for epoch in range(int(rl.get("num_epochs", 100))):
+        t0 = time.time()
+        with phase("train"):
+            runner, metrics = train_epoch(runner)
+        train_time = time.time() - t0
+        t0 = time.time()
+        with phase("eval"):
+            eval_stats = evaluator(runner.algo_state,
+                                   Noise(seed + epoch + 1, device))
+        eval_time = time.time() - t0
+        logger.record_dict(metrics, prefix="trainer/")
+        logger.record_dict(eval_stats)
+        if hasattr(runner, "total_env_steps"):
+            logger.record_tabular("TotalEnvSteps", runner.total_env_steps)
+        logger.record_tabular("TrainTime", train_time)
+        logger.record_tabular("EvalTime", eval_time)
+        logger.dump_tabular(epoch)
+        snap.on_epoch(epoch, runner, eval_stats)
+    logger.close()
+    return runner
+
+
+def run_bc(variant: Dict[str, Any], device=None):
+    """Behaviour cloning from demos (reference run_scripts/
+    bc_exp_script.py; the JAX `run_bc`, experiments.py:728-775): an epoch
+    is `num_train_steps_per_train_call` steps on the expert ring, the
+    evaluation runs max(env_num, 8) envs for `max_path_length` steps.  A
+    set `load_params` raises ValueError (the JAX launcher never reads
+    it)."""
+    from ilswiss_tpu_torch.algorithms.bc import BC, BCConfig
+    from ilswiss_tpu_torch.runtime.offline import OfflineLoop
+
+    _refuse_resume(variant, "BC")
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "bc")
+    _route_host(variant, env_name)
+    vec = make_vec(env_name, num_envs=max(num_envs, 8), device=device,
+                   **env_kwargs)
+    p = _alg(variant, "bc_params")
+    algo = BC(vec.env.observation_size, vec.env.action_size,
+              BCConfig(mode=str(p.get("mode", "MLE")),
+                       lr=float(p.get("lr", 1e-3))),
+              device=device, **_nets(variant))
+    loop = OfflineLoop(algo, _load_demos(variant, device),
+                       batch_size=int(rl.get("batch_size", 256)))
+    steps_per_epoch = int(rl.get("num_train_steps_per_train_call", 1000))
+    evaluator = make_evaluator(
+        vec, lambda s, o: algo.act(s, o, deterministic=True),
+        int(rl.get("max_path_length", 1000)))
+    logger.log(f"trainer {type(algo).__name__}: {algo.config}")
+    return _run_epochs(lambda r: loop.train_epoch(r, steps_per_epoch),
+                       evaluator, loop.init(seed), rl, logger, seed, device)
+
+
+def _resolve_expert_fn(variant: Dict, vec: VectorEnv, device) -> Callable:
+    """The expert DAgger queries, obs -> action: `scripted_expert`
+    ("module:function"; a module under ilswiss_tpu. is read as the same
+    path under ilswiss_tpu_torch., so the JAX specs' names resolve to the
+    port's envs/experts.py, and any other module is imported as given), or
+    the deterministic policy of a trained SAC snapshot at
+    `expert_policy_path` (a 'best' or a full 'last'), with
+    `expert_net_size` / `expert_num_hidden_layers` (default: the net
+    sizes)."""
+    scripted = variant.get("scripted_expert")
+    if scripted:
+        mod_name, fn_name = str(scripted).split(":")
+        if mod_name == "ilswiss_tpu" or mod_name.startswith("ilswiss_tpu."):
+            mod_name = "ilswiss_tpu_torch" + mod_name[len("ilswiss_tpu"):]
+        return getattr(importlib.import_module(mod_name), fn_name)
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(),
+              net_size=int(variant.get("expert_net_size",
+                                       variant.get("net_size", 256))),
+              num_hidden_layers=int(variant.get(
+                  "expert_num_hidden_layers",
+                  variant.get("num_hidden_layers", 2))),
+              device=device)
+    algo_state = restore_subtree(str(variant["expert_policy_path"]),
+                                 sac.init(0))
+    return lambda obs: sac.act(algo_state, obs, deterministic=True)
+
+
+def run_dagger(variant: Dict[str, Any], device=None):
+    """DAgger (reference run_scripts/dagger_exp_script.py; the JAX
+    `run_dagger`, experiments.py:777-868): the loop keys under
+    `rl_alg_params` or nested in `dagger_params`, the ring seeded with the
+    demos, `num_initial_train_steps` expert-only steps first, then epochs
+    of `num_steps_per_epoch` env steps with K = `_grad_steps_per_iter` BC
+    steps an iteration.  As in the JAX launcher, the env's horizon is read
+    before `dagger_params` is merged (so from rl_alg_params' or the
+    default 1000), and `dagger_params.num_updates_per_train_call` is not
+    read: K comes from `num_train_steps_per_train_call` (default 1000).
+    A set `load_params` raises ValueError (the JAX launcher never reads
+    it)."""
+    from ilswiss_tpu_torch.algorithms.bc import BC, BCConfig
+    from ilswiss_tpu_torch.algorithms.dagger import (
+        DAggerLoop, DAggerLoopConfig,
+    )
+
+    _refuse_resume(variant, "DAgger")
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, "dagger")
+    p = _alg(variant, "dagger_params")
+    # the reference nests the loop params inside dagger_params
+    for k, v in p.items():
+        rl.setdefault(k, v)
+    _route_host(variant, env_name)
+    vec = make_vec(env_name, num_envs=max(num_envs, 8), device=device,
+                   **env_kwargs)
+    bc = BC(vec.env.observation_size, vec.env.action_size,
+            BCConfig(mode=str(p.get("mode", "MLE")),
+                     lr=float(p.get("lr", 3e-4))),
+            net_size=int(variant.get("policy_net_size",
+                                     variant.get("net_size", 256))),
+            num_hidden_layers=int(variant.get(
+                "policy_num_hidden_layers",
+                variant.get("num_hidden_layers", 2))),
+            device=device)
+    loop = DAggerLoop(
+        vec, bc, _resolve_expert_fn(variant, vec, device),
+        _load_demos(variant, device),
+        DAggerLoopConfig(
+            batch_size=int(rl.get("batch_size", 256)),
+            aggregate_capacity=int(rl.get("replay_buffer_size", 200_000)),
+            grad_steps_per_iter=_grad_steps_per_iter(rl, vec.num_envs)))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 8000))
+    evaluator = make_evaluator(
+        vec, lambda s, o: bc.act(s, o, deterministic=True),
+        int(rl.get("max_path_length", 1000)))
+    logger.log(f"trainer {type(bc).__name__}: {bc.config}; {loop.config}, "
+               f"{loop.grad_steps_per_iter} steps an iteration")
+    runner = loop.pretrain(
+        loop.init(seed),
+        initial_train_steps=int(rl.get("num_initial_train_steps", 1000)))
+    logger.log(f"seeded with {runner.aggregate.size} demo rows, cursor "
+               f"{runner.aggregate.ptr}")
+    return _run_epochs(lambda r: loop.train_epoch(r, steps_per_epoch),
+                       evaluator, runner, rl, logger, seed, device)
+
+
+def _subsample_transitions(state, factor: int, seed: int):
+    """Every `factor`-th transition within each episode from a random
+    start offset per episode, drawn from np.random.RandomState(seed) (JAX
+    experiments.py:2020-2038; the reference gen_expert_demos.py
+    subsample_factor)."""
+    if factor <= 1:
+        return state
+    from ilswiss_tpu_torch.data.demo import demos_to_replay_state
+    n = state.size
+    ep = state.ep_id[:n].cpu().numpy()
+    rng = np.random.RandomState(seed)
+    keep = np.zeros(n, bool)
+    for e in np.unique(ep):
+        idx = np.nonzero(ep == e)[0]
+        keep[idx[rng.randint(factor)::factor]] = True
+    sel = np.nonzero(keep)[0]
+    d = {k: v[:n].cpu().numpy()[sel] for k, v in state.data.items()}
+    return demos_to_replay_state(
+        d["obs"], d["action"], d["reward"], d["next_obs"], d["terminal"],
+        ep[sel], device=state.ep_id.device)
+
+
+def run_gen_expert(variant: Dict[str, Any], device=None):
+    """Expert demos from a scripted controller (`use_scripted_policy`,
+    envs/experts.py) or a trained `sac` / `td3` snapshot at `expert_path`
+    (`expert_algo`), rolled over `env_num` device envs for num_rollouts *
+    max_path_length steps in all, subsampled per episode
+    (`subsample_factor`), saved to `save_path` (default
+    demos/<exp_name>.npz) and registered under `expert_name` in
+    `demos_listing` (default demos_listing.yaml) (reference
+    run_scripts/gen_expert_demos.py; the device branches of the JAX
+    `run_gen_expert`, experiments.py:1839-1978).  The DMC pixel branch
+    raises naming item 2.7, a host env item 2.8; a set `load_params`
+    raises ValueError (the JAX launcher never reads it).  Returns the
+    path written."""
+    import yaml
+
+    from ilswiss_tpu_torch.data.demo import save_demos_npz
+    from ilswiss_tpu_torch.envs.experts import SCRIPTED_EXPERTS
+    from ilswiss_tpu_torch.runtime.collector import collect_transitions
+
+    _refuse_resume(variant, "gen_expert")
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, "gen_expert")
+    if env_name == "dmc":
+        raise _not_ported("gen_expert's DMC pixel branch", "2.7")
+    _route_host(variant, env_name)
+    num_envs = max(1, num_envs)
+    max_path_length = int(variant.get(
+        "max_path_length", env_kwargs.get("max_episode_steps", 1000)))
+    env_kwargs["max_episode_steps"] = max_path_length
+    num_rollouts = int(variant.get("num_rollouts", 4))
+    subsample = max(1, int(variant.get("subsample_factor", 1)))
+    steps_per_env = -(-num_rollouts * max_path_length // num_envs)
+    deterministic = bool(variant.get("use_deterministic_expert", True))
+    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+
+    if bool(variant.get("use_scripted_policy", False)):
+        if env_name not in SCRIPTED_EXPERTS:
+            raise KeyError(f"no scripted expert for '{env_name}'; "
+                           f"available: {sorted(SCRIPTED_EXPERTS)}")
+        controller = SCRIPTED_EXPERTS[env_name]
+        act_fn = lambda obs, noise: controller(obs)  # noqa: E731
+    else:
+        expert_algo = str(variant.get("expert_algo", "sac"))
+        obs_size, action_size = vec.env.observation_size, vec.env.action_size
+        nets = dict(net_size=int(variant.get("net_size", 256)),
+                    num_hidden_layers=int(variant.get("num_hidden_layers",
+                                                      2)))
+        if expert_algo == "td3":
+            from ilswiss_tpu_torch.algorithms.td3 import TD3, TD3Config
+            algo = TD3(obs_size, action_size, TD3Config(), device=device,
+                       **nets)
+        else:
+            from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+            algo = SAC(obs_size, action_size, SACConfig(), device=device,
+                       **nets)
+        algo_state = restore_subtree(str(variant["expert_path"]),
+                                     algo.init(0))
+
+        def act_fn(obs, noise):
+            if deterministic:
+                return algo.act(algo_state, obs, deterministic=True)
+            return algo.act(algo_state, obs,
+                            *algo.act_noise(noise, obs.shape[0]))
+
+    demos = collect_transitions(vec, act_fn, steps_per_env,
+                                Noise(seed, device))
+    demos = _subsample_transitions(demos, subsample, seed)
+
+    out_path = str(variant.get("save_path") or os.path.join(
+        "demos", f"{variant.get('exp_name', 'gen_expert')}.npz"))
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    save_demos_npz(out_path, demos)
+    mean_rew = float(demos.data["reward"].mean())
+    logger.log(f"saved {demos.size} transitions to {out_path} "
+               f"(mean step reward {mean_rew:.3f})")
+
+    listing_path = str(variant.get("demos_listing", "demos_listing.yaml"))
+    listing = {}
+    if os.path.exists(listing_path):
+        with open(listing_path) as f:
+            listing = yaml.safe_load(f) or {}
+    key = str(variant.get(
+        "expert_name", os.path.splitext(os.path.basename(out_path))[0]))
+    listing[key] = {"file_path": out_path, "env": env_name,
+                    "num_transitions": demos.size}
+    with open(listing_path, "w") as f:
+        yaml.safe_dump(listing, f)
+    logger.record_tabular("NumTransitions", demos.size)
+    logger.record_tabular("MeanStepReward", mean_rew)
+    logger.dump_tabular(0)
+    logger.close()
+    return out_path
+
+
+def run_her(variant: Dict[str, Any], device=None):
+    """HER over SAC or TD3 (`inner_algo`) on a device goal env (reference
+    run_scripts/her_*_exp_script.py; the JAX `run_her`'s device branch,
+    experiments.py:1519-1657): TD3 with the reference's target clip
+    [-1 / (1 - discount), 0] and the Gaussian-and-epsilon explorer
+    (`max_sigma` or `exploration_noise`, `epsilon`); the relabel knobs
+    from `her_params` or `rl_alg_params`; the evaluation on the training
+    envs for the env's horizon.  A host goal env (the Fetch specs) raises
+    naming item 2.8, a set `load_params` ValueError (the JAX launcher
+    never reads it)."""
+    from ilswiss_tpu_torch.algorithms.her import HER, HERLoop, HERLoopConfig
+
+    _refuse_resume(variant, "HER")
+    device = resolve_device(device)
+    seed, vec, rl, logger = _on_device_vec(variant, "her", device)
+    env = vec.env
+    obs_size = env.observation_size + env.goal_size
+    nets = _nets(variant)
+    if str(variant.get("inner_algo", "sac")) == "td3":
+        from ilswiss_tpu_torch.algorithms.td3 import TD3, TD3Config
+        p = _alg(variant, "td3_params")
+        discount = float(p.get("discount", 0.98))
+        inner = TD3(obs_size, env.action_size, TD3Config(
+            discount=discount,
+            # the reference her/td3.py:79-86 target clip
+            q_target_min=-1.0 / (1.0 - discount),
+            q_target_max=0.0,
+            # the reference's MlpGaussianAndEpsilonPolicy defaults
+            exploration_noise=float(
+                p.get("max_sigma", p.get("exploration_noise", 0.2))),
+            exploration_epsilon=float(p.get("epsilon", 0.3)),
+        ), device=device, **nets)
+    else:
+        from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+        p = _alg(variant, "sac_params")
+        inner = SAC(obs_size, env.action_size, SACConfig(
+            discount=float(p.get("discount", 0.98)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+        ), device=device, **nets)
+    her = HER(inner)
+    hp = _alg(variant, "her_params")
+    loop = HERLoop(
+        vec, her,
+        HERLoopConfig(
+            batch_size=int(rl.get("batch_size", 256)),
+            num_episode_slots=int(hp.get("num_episode_slots", 1024)),
+            grad_steps_per_iter=_grad_steps_per_iter(rl, vec.num_envs)),
+        # the reference HER specs keep the relabel knobs in rl_alg_params
+        relabel_type=str(hp.get("relabel_type",
+                                rl.get("relabel_type", "future"))),
+        her_ratio=float(hp.get("her_ratio", rl.get("her_ratio", 0.8))))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 4000))
+    rl.setdefault("num_epochs", 50)
+    evaluator = make_evaluator(
+        vec, lambda s, o: her.act(s, o, deterministic=True),
+        env.max_episode_steps)
+    logger.log(f"trainer HER({type(inner).__name__}): {inner.config}; "
+               f"{loop.config}, {loop.grad_steps_per_iter} steps an "
+               f"iteration")
+    return _run_epochs(lambda r: loop.train_epoch(r, steps_per_epoch),
+                       evaluator, loop.warmup(loop.init(seed)), rl, logger,
+                       seed, device)
+
+
+def run_gcsl(variant: Dict[str, Any], device=None):
+    """GCSL on a device goal env (reference gcsl/rl.py; the JAX
+    `run_gcsl`, experiments.py:1659-1720): `gcsl_params` (mode MLE, MSE or
+    CLASS, lr, use_horizons, num_episode_slots), the one-hot's width the
+    env's horizon, and with `env_specs.discretize` a `DiscretEnv` of
+    `discret_kwargs` (granularity, possible_actions) under a CLASS-mode
+    policy.  A host env raises naming item 2.8, a set `load_params`
+    ValueError (the JAX launcher never reads it)."""
+    from ilswiss_tpu_torch.algorithms.gcsl import GCSL, GCSLConfig, GCSLLoop
+    from ilswiss_tpu_torch.algorithms.her import HERLoopConfig
+    from ilswiss_tpu_torch.envs.wrappers import DiscretEnv
+
+    _refuse_resume(variant, "GCSL")
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "gcsl")
+    _route_host(variant, env_name)
+    env_specs = _alg(variant, "env_specs")
+    env = make(env_name, device=device, **env_kwargs)
+    if bool(env_specs.get("discretize", False)):
+        dk = dict(env_specs.get("discret_kwargs") or {})
+        env = DiscretEnv(env, granularity=int(dk.get("granularity", 10)),
+                         possible_actions=dk.get("possible_actions"))
+    vec = VectorEnv(env, num_envs)
+    p = _alg(variant, "gcsl_params")
+    gcsl = GCSL(
+        env.observation_size, env.goal_size, env.action_size,
+        GCSLConfig(mode=str(p.get("mode", "MSE")),
+                   lr=float(p.get("lr", 1e-3)),
+                   use_horizons=bool(p.get("use_horizons", True)),
+                   max_horizon=env.max_episode_steps),
+        device=device, **_nets(variant))
+    loop = GCSLLoop(vec, gcsl, HERLoopConfig(
+        batch_size=int(rl.get("batch_size", 256)),
+        num_episode_slots=int(p.get("num_episode_slots", 1024)),
+        grad_steps_per_iter=_grad_steps_per_iter(rl, num_envs)))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 4000))
+    rl.setdefault("num_epochs", 50)
+    evaluator = make_evaluator(
+        vec, lambda s, o: gcsl.act(s, o, deterministic=True),
+        env.max_episode_steps)
+    logger.log(f"trainer {type(gcsl).__name__}: {gcsl.config}; "
+               f"{loop.config}, {loop.grad_steps_per_iter} steps an "
+               f"iteration")
+    return _run_epochs(lambda r: loop.train_epoch(r, steps_per_epoch),
+                       evaluator, loop.warmup(loop.init(seed)), rl, logger,
+                       seed, device)
+
+
 def _unported_run(name: str, item: str) -> Callable:
     def run(variant: Dict[str, Any], device=None):
         raise _not_ported(f"the {name!r} experiment", item)
@@ -888,16 +1302,16 @@ EXPERIMENTS: Dict[str, Callable] = {
     "gail": run_adv_irl,
     "ppo": run_ppo,
     "mbpo": run_mbpo,
+    "bc": run_bc,
+    "dagger": run_dagger,
+    "gen_expert": run_gen_expert,
+    "her": run_her,
+    "gcsl": run_gcsl,
     **{name: _unported_run(name, item) for name, item in (
         ("sac_vmap_seeds", "2.10"),
-        ("bc", "2.6"),
-        ("dagger", "2.6"),
         ("render_policy", "2.10"),
         ("sac_ae", "2.7"),
         ("sac_rad", "2.7"),
         ("sac_curl", "2.7"),
-        ("her", "2.5"),
-        ("gcsl", "2.5"),
-        ("gen_expert", "2.6"),
     )},
 }

@@ -63,6 +63,22 @@ def tanh_normal_log_prob(mean: torch.Tensor, log_std: torch.Tensor,
     return base - correction
 
 
+def expert_action_log_prob(mean: torch.Tensor, log_std: torch.Tensor,
+                           action: torch.Tensor) -> torch.Tensor:
+    """`tanh_normal_log_prob` of a given action (BC's and GCSL's MLE
+    losses), with the sums formed as (1 + 1e-6) -+ a and (1 + 1e-6) - a^2,
+    as XLA compiles the JAX `1.0 - a + TANH_EPS` inside a jitted step: it
+    folds the two constants into float32 1.00000095.  Expert actions sit
+    exactly at +-1 (the scripted controllers saturate), where that reads
+    log(9.54e-7) and not log(1e-6), and those rows dominate the loss."""
+    one_eps = 1.0 + TANH_EPS      # float32 1.00000095 against a tensor
+    pre_tanh = 0.5 * (torch.log(one_eps + action)
+                      - torch.log(one_eps - action))
+    correction = torch.sum(torch.log(one_eps - action ** 2), dim=-1,
+                           keepdim=True)
+    return normal_log_prob(mean, log_std, pre_tanh) - correction
+
+
 # --- Categorical (the reference's DiscretePolicy softmax head) ------------
 def categorical_sample(logits: torch.Tensor, gumbel: torch.Tensor
                        ) -> torch.Tensor:

@@ -25,7 +25,8 @@ def make_evaluator(vec_env: VectorEnv, act_fn: Callable,
     def evaluate(algo_state, noise) -> Dict[str, float]:
         env, n = vec_env.env, vec_env.num_envs
         env_state = vec_env.reset(noise.reset(env, n))
-        kw = dict(dtype=torch.float32, device=env_state.obs.device)
+        # the step counter's device: obs may be a goal env's dict
+        kw = dict(dtype=torch.float32, device=env_state.t.device)
         returns = torch.zeros(n, **kw)
         lengths = torch.zeros(n, **kw)
         running = torch.ones(n, **kw)

@@ -118,7 +118,8 @@ class Noise:
         return self._normal(shape)
 
     def sample(self, shape) -> torch.Tensor:
-        """N(0, 1) noise of the one policy sample of a SAC-V step."""
+        """N(0, 1) noise of the one policy sample of a SAC-V step or of a
+        BC step in MSE mode."""
         return self._normal(shape)
 
     def gumbel(self, shape) -> torch.Tensor:
@@ -166,6 +167,14 @@ class Noise:
     def model(self, shape) -> torch.Tensor:
         """N(0, 1) noise of a model step's Gaussian sample."""
         return self._normal(shape)
+
+    def hindsight(self, batch_size: int, num_envs: int) -> tuple:
+        """The draws of one hindsight batch (data/her.py): the env of each
+        row, int64 [batch_size] uniform in [0, num_envs), then uniforms
+        in [0, 1) [batch_size] that pick its episode, its step and its
+        future step."""
+        return (self._randint((batch_size,), num_envs),
+                *(self._uniform((batch_size,), 0.0, 1.0) for _ in range(3)))
 
 
 @dataclass

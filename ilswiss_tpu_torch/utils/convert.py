@@ -29,7 +29,11 @@ maps:
     Dense (`cell_f0.ir` is `params/cell_f0/ir`);
   * the ensemble model's layers keep flax's [E, in, out] kernels and
     [E, 1, out] biases untransposed; its optimizer is a plain optax.adam
-    and its elites become int64.
+    and its elites become int64;
+  * BC's and GCSL's states are one policy (tanh-Gaussian, or GCSL's
+    categorical `mlp`) and its plain optax.adam;
+  * a goal env's observation is a dict of arrays, and the hindsight ring
+    keeps the JAX field names.
 
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
@@ -43,6 +47,8 @@ import numpy as np
 import torch
 
 from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLState
+from ilswiss_tpu_torch.algorithms.bc import BCState
+from ilswiss_tpu_torch.algorithms.gcsl import GCSLState
 from ilswiss_tpu_torch.algorithms.bnn_trainer import BNNState, BNNTrainer
 from ilswiss_tpu_torch.algorithms.ddpg import DDPGState
 from ilswiss_tpu_torch.algorithms.ppo import PPO, PPOState
@@ -52,6 +58,7 @@ from ilswiss_tpu_torch.algorithms.mbpo import MBPO, MBPORunnerState
 from ilswiss_tpu_torch.algorithms.sac import SAC, Adam, SACState, TwinQ
 from ilswiss_tpu_torch.algorithms.sac_v import SACVState
 from ilswiss_tpu_torch.algorithms.td3 import TD3State
+from ilswiss_tpu_torch.data.her import HindsightReplayState
 from ilswiss_tpu_torch.data.replay import ReplayState
 from ilswiss_tpu_torch.envs.base import EnvState
 from ilswiss_tpu_torch.models.bnn import InputNormalizer
@@ -221,24 +228,37 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
+def _obs_from_jax(obs, device):
+    if isinstance(obs, dict):
+        return {k: _tensor(v, device, torch.float32) for k, v in obs.items()}
+    return _tensor(obs, device, torch.float32)
+
+
+def _obs_to_numpy(obs):
+    if isinstance(obs, dict):
+        return {k: v.cpu().numpy() for k, v in obs.items()}
+    return obs.cpu().numpy()
+
+
 def env_state_from_jax(jstate, device) -> EnvState:
     """A batched EnvState: internal (locomotion: q, qd, warm-start row
     forces, [B, 38] for hopper, [B, 116] for ant; a classic env's one
-    [B, n] array becomes a 1-tuple), obs and t; the JAX per-env keys have
-    no counterpart and are dropped."""
+    [B, n] array becomes a 1-tuple; reach2d's (pos_vel, goal)), obs (a
+    goal env's a dict) and t; the JAX per-env keys have no counterpart and
+    are dropped."""
     internal = jstate.internal
     if not isinstance(internal, (tuple, list)):
         internal = (internal,)
     return EnvState(
         internal=tuple(_tensor(x, device, torch.float32) for x in internal),
-        obs=_tensor(jstate.obs, device, torch.float32),
+        obs=_obs_from_jax(jstate.obs, device),
         t=_tensor(jstate.t, device, torch.int32),
     )
 
 
 def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
     return {"internal": tuple(x.cpu().numpy() for x in state.internal),
-            "obs": state.obs.cpu().numpy(), "t": state.t.cpu().numpy()}
+            "obs": _obs_to_numpy(state.obs), "t": state.t.cpu().numpy()}
 
 
 def replay_from_jax(jreplay, device) -> ReplayState:
@@ -556,3 +576,43 @@ def mbpo_runner_to_numpy(runner: MBPORunnerState) -> Dict[str, Any]:
 def metrics_to_numpy(metrics: Dict[str, torch.Tensor]
                      ) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+
+
+# --- BC, GCSL and the hindsight ring ----------------------------------------
+def policy_state_from_jax(algo, jstate):
+    """A BCState or GCSLState on `algo`'s device holding the JAX state's
+    values: the policy's params and its plain optax.adam's moments and
+    count."""
+    state = algo.init(0)
+    leaves = _module_leaves(state.policy)
+    _load_leaves(leaves, jstate.policy_params)
+    _load_adam_tree(state.policy_opt, leaves, jstate.policy_opt[0])
+    return state
+
+
+def policy_state_to_numpy(state: BCState | GCSLState) -> Dict[str, Any]:
+    """Such a state in the JAX layouts: the flax param tree and
+    {"count", "mu", "nu"} with moment trees shaped like the params."""
+    leaves = _module_leaves(state.policy)
+    return {"policy_params": _dump_leaves(leaves),
+            "policy_opt": _dump_adam_tree(state.policy_opt, leaves)}
+
+
+bc_state_from_jax = gcsl_state_from_jax = policy_state_from_jax
+bc_state_to_numpy = gcsl_state_to_numpy = policy_state_to_numpy
+
+
+def hindsight_from_jax(jstate, device) -> HindsightReplayState:
+    return HindsightReplayState(
+        data={k: _tensor(v, device) for k, v in jstate.data.items()},
+        ep_len=_tensor(jstate.ep_len, device, torch.int32),
+        cur_slot=_tensor(jstate.cur_slot, device, torch.int32),
+        cur_t=_tensor(jstate.cur_t, device, torch.int32),
+        completed=_tensor(jstate.completed, device, torch.int32))
+
+
+def hindsight_to_numpy(state: HindsightReplayState) -> Dict[str, Any]:
+    out = {"data": {k: v.cpu().numpy() for k, v in state.data.items()}}
+    for name in ("ep_len", "cur_slot", "cur_t", "completed"):
+        out[name] = getattr(state, name).cpu().numpy()
+    return out

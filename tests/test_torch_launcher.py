@@ -202,20 +202,21 @@ def test_routing_raises_naming_the_roadmap_item(tmp_path):
         run(_variant(tmp_path, env_specs={"env_name": "hopper",
                                           "force_host": True}),
             device="cpu")
-    for env, item in (("reach2d", "2.5"), ("pendulum_pixels", "2.7")):
+    for env, item in (("pendulum_pixels", "2.7"),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             run(_variant(tmp_path, env), device="cpu")
     # an unported device env raises through every trainer's launcher
-    with pytest.raises(NotImplementedError, match="item 2.5"):
-        pexp.EXPERIMENTS["dqn"](_variant(tmp_path, "reach2d"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.7"):
+        pexp.EXPERIMENTS["dqn"](_variant(tmp_path, "pendulum_pixels"),
+                                device="cpu")
     with pytest.raises(ValueError, match="unknown env"):
         run(_variant(tmp_path, "no_such_env"), device="cpu")
     # every JAX experiment name is known; the unported ones raise
     assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
-    with pytest.raises(NotImplementedError, match="item 2.5"):
-        pexp.EXPERIMENTS["her"](_variant(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.6"):
-        pexp.EXPERIMENTS["bc"](_variant(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.7"):
+        pexp.EXPERIMENTS["sac_ae"](_variant(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2.10"):
+        pexp.EXPERIMENTS["render_policy"](_variant(tmp_path), device="cpu")
     if not torch.cuda.is_available():      # the default device is the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(_variant(tmp_path))
@@ -376,8 +377,11 @@ def test_run_eval_policy_from_the_best_snapshot(runs, tmp_path):
                                       log_dir=str(tmp_path / "e2")),
                                  device="cpu")
     assert again["AverageReturn"] != stats["AverageReturn"]
-    with pytest.raises(NotImplementedError, match="item 2.6"):
-        pexp.run_eval_policy(dict(variant, save_samples=True), device="cpu")
+    # save_samples: num_eval_steps // env_num steps of every env as demos
+    pexp.run_eval_policy(dict(variant, save_samples=True, num_eval_steps=40,
+                              log_dir=str(tmp_path / "e3")), device="cpu")
+    samples = np.load(tmp_path / "e3" / "eval_samples.npz")
+    assert samples["obs"].shape == (40, 3)
 
 
 def test_cli_runs_a_spec_in_a_process_without_jax(tmp_path):

@@ -42,9 +42,10 @@ WIDTHS = {"hopper": 11, "ant": 105, "ant_trunc_obs": 27, "humanoid": 348,
           "humanoid_trunc_obs": 45, "swimmer": 8,
           "inverteddoublependulum": 9, "invertedpendulum": 4,
           "walker": 17, "halfcheetah": 17}
-# the classic-control envs, held against JAX in test_torch_envs_classic.py
-# (pendulum, mountain) and test_torch_cartpole_nstep.py (cartpole)
-CLASSIC = {"pendulum", "mountain", "cartpole"}
+# the registry's other envs, held against JAX in test_torch_envs_classic.py
+# (pendulum, mountain), test_torch_cartpole_nstep.py (cartpole) and
+# test_torch_her_gcsl.py (the goal env reach2d)
+CLASSIC = {"pendulum", "mountain", "cartpole", "reach2d"}
 
 
 def _assert_scaled_close(got, want, what=""):
