@@ -200,7 +200,22 @@ exits non-zero on any failure; no phase catches its own error.
      TotalEnvSteps 16 x 350, a batch sampled from each run's hindsight
      ring equal to the same draws on a CPU copy of it, exactly; an
      iteration's and an inner step's wall ms, device operations and
-     device ms.
+     device ms;
+ 18. the visual path: exp_specs/sac_ae/, sac_rad/ and sac_curl/
+     *_pendulum_pixels.yaml through `EXPERIMENTS` cut in length only (1
+     epoch of 1600 steps after the spec's 1000-step warmup; 16 envs of 64
+     px, K = 8 at batch 128, the 100,000-row ring, bf16 convs, crop 56 for
+     RAD and CURL), under build/chip_smoke_visual/ (each run's logs deleted
+     once read): no kernel launch, every value finite, TotalEnvSteps 2592,
+     one SAC-AE step on the card against a CPU copy (16 rows of a batch,
+     float32 convs, rtol 2e-4, atol 1e-4); an even and an odd SAC-AE
+     step's and an iteration's wall ms, device operations and device ms,
+     TrainTime, EvalTime, the ring's bytes, the peak memory, the
+     snapshots' sizes, save and load seconds, and the bf16-vs-float32
+     feature gap (the disk's free space and the host bridges' packages
+     printed first); then GAIL with the cnn discriminator on
+     pendulum_pixels through `OffPolicyLoop` (2 envs, batch 16, an 8-step
+     epoch): finite metrics, no launch.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -2284,6 +2299,283 @@ def goal_phase(card: str, counters: dict) -> dict:
     return result
 
 
+VISUAL_DIR = "build/chip_smoke_visual"
+VISUAL_SPECS = {
+    "sac_ae": ("sac_ae", "exp_specs/sac_ae/sac_ae_pendulum_pixels.yaml"),
+    "sac_rad": ("sac_rad", "exp_specs/sac_rad/sac_rad_pendulum_pixels.yaml"),
+    "sac_curl": ("sac_curl",
+                 "exp_specs/sac_curl/sac_curl_pendulum_pixels.yaml")}
+VISUAL_CUT = {"num_epochs": 1, "num_steps_per_epoch": 1600}
+VISUAL_METRICS = {
+    "sac_ae": ["qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
+               "rec_loss", "latent_loss"],
+    "sac_curl": ["qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
+                 "alpha", "curl_loss"]}
+VISUAL_METRICS["sac_rad"] = VISUAL_METRICS["sac_ae"]
+# the GAIL epoch at tests/test_il.py::test_visual_gail_cnn_disc_epoch's
+# shapes: 2 envs of 64 px, 60 demo steps an env, batch 16, an 8-step epoch
+CNN_GAIL = {"envs": 2, "demo_steps": 60, "batch": 16, "epoch_steps": 8}
+# one SAC-AE step on the card against a CPU copy (float32 convs on both)
+# on the first VISUAL_CHECK_ROWS rows of a batch: the pins of
+# tests/test_torch_visual.py's updates
+VISUAL_PIN = {"rtol": 2e-4, "atol": 1e-4}
+VISUAL_CHECK_ROWS = 16
+
+
+@contextlib.contextmanager
+def timed_snapshots():
+    """Inside: the seconds of every `SnapshotManager.on_epoch` call (the
+    epoch's 'epoch_N', 'last' and 'best' saves) in the yielded list."""
+    from ilswiss_tpu_torch.runtime.checkpoint import SnapshotManager
+
+    seconds = []
+    on_epoch = SnapshotManager.on_epoch
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = on_epoch(self, *args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    SnapshotManager.on_epoch = timed
+    try:
+        yield seconds
+    finally:
+        SnapshotManager.on_epoch = on_epoch
+
+
+def visual_phase(card: str, counters: dict) -> dict:
+    """Phase 18: the visual path.  sac_ae_pendulum_pixels.yaml,
+    sac_rad_pendulum_pixels.yaml and sac_curl_pendulum_pixels.yaml through
+    `EXPERIMENTS[...]` on the card, cut in length only (1 epoch of 1600
+    steps after the spec's 1000-step warmup), logs under
+    build/chip_smoke_visual/: 16 envs of 64 px frames, K = 8 SAC-AE steps
+    an iteration at batch 128, the spec's 100,000-row float32 ring, a 4 x
+    32 conv encoder of 50 features in bf16, a 256 x 2 SAC, crop 56 for RAD
+    and CURL.  The path is analytic and eager: no kernel may launch.
+    Fails unless every progress.csv value is finite, TotalEnvSteps is 62
+    x 16 + 1600 and the state took 800 steps, and one SAC-AE step (both
+    phases of an even step, on 16 rows of a batch) on the card agrees with
+    the same step on a CPU copy of the end state, float32 convs on both,
+    at rtol 2e-4, atol 1e-4.
+    Prints per spec: a SAC-AE step's wall ms, device operations and
+    device ms (an even and an odd step), an iteration's, TrainTime and
+    EvalTime, the ring's bytes and the peak device memory, the snapshots'
+    sizes, the epoch's save seconds and the 'last' snapshot's load
+    seconds, and the largest gap between the bf16 and the float32
+    encoder's features on one batch.  Each run's log directory is deleted
+    once read.  The disk's free space and which of the host bridges'
+    packages import are printed first.  Then GAIL with the cnn
+    discriminator on pendulum_pixels through `OffPolicyLoop` (`CNN_GAIL`):
+    finite metrics, no launch, a discriminator step's costs."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLConfig
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.algorithms.sac_ae import SACAE
+    from ilswiss_tpu_torch.data.augmentations import center_crop
+    from ilswiss_tpu_torch.envs import make_vec
+    from ilswiss_tpu_torch.runtime.checkpoint import (
+        restore_checkpoint, restore_into, to_tree,
+    )
+    from ilswiss_tpu_torch.runtime.collector import collect_transitions
+    from ilswiss_tpu_torch.runtime.loop import (
+        Noise, OffPolicyConfig, OffPolicyLoop,
+    )
+
+    out = ROOT / VISUAL_DIR
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    usage = shutil.disk_usage(out)
+    print(f"visual: disk at {out}: {usage.free / 2**30:.1f} GiB free of "
+          f"{usage.total / 2**30:.1f} GiB")
+    # the packages the host bridges (ROADMAP.md item 2.8) would need
+    found = {m: importlib.util.find_spec(m) is not None for m in (
+        "mujoco", "gymnasium", "gymnasium_robotics", "dm_control", "Box2D")}
+    print(f"visual: host-bridge packages importable here: "
+          f"{json.dumps(found)}")
+    result = {"launches": {}}
+    for what, (name, path) in VISUAL_SPECS.items():
+        variant, full = cut_spec(path, out, VISUAL_CUT)
+        log_dir = out / what
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with kept((OffPolicyLoop, "init")) as seen, \
+                timed_snapshots() as save_s:
+            runner, launches, seconds = run_spec(
+                name, variant, log_dir, counters, None)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"visual {what}", (("(1 epoch)", launches,
+                                           NO_LAUNCHES),))
+        loop = seen["init"][-1]
+        algo, state = loop.algo.algo, runner.algo_state
+        rl = variant["rl_alg_params"]
+        n, K = loop.vec_env.num_envs, loop.grad_steps_per_iter
+        warm = max(1, rl["min_steps_before_training"] // n)
+        iters = rl["num_steps_per_epoch"] // n
+        steps = n * (warm + iters)
+        metrics = ["trainer/" + m for m in VISUAL_METRICS[what]]
+        row = finite_row(f"visual {what}", log_dir,
+                         metrics + EVAL_COLUMNS[:6])
+        if (row["TotalEnvSteps"] != steps or runner.total_env_steps != steps
+                or state.step != iters * K):
+            fail(f"visual {what}: TotalEnvSteps {row['TotalEnvSteps']} "
+                 f"(expected {steps}), {state.step} SAC-AE steps (expected "
+                 f"{iters * K})")
+        ring_bytes = sum(t.numel() * t.element_size()
+                         for t in runner.replay.data.values())
+        sizes = {d: sum(f.stat().st_size for f in (log_dir / "checkpoints"
+                                                    / d).iterdir())
+                 for d in ("epoch_0", "last", "best")}
+        t0 = time.perf_counter()
+        restore_checkpoint(str(log_dir / "checkpoints" / "last"), runner)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        shutil.rmtree(log_dir)
+
+        # costs of one SAC-AE step on the end state: an even step (every
+        # phase of the spec) and an odd one (the autoencoder's or CURL's)
+        noise = Noise(61, loop.device)
+        batch = loop.sample_fn(runner.replay, noise, loop.config.batch_size)
+        draws = algo.train_noise(noise, loop.config.batch_size)
+
+        def step(parity):
+            def call():
+                state.step = parity
+                algo.train_step(state, batch, *draws)
+            return call
+
+        even = step_costs(step(0))
+        odd = step_costs(step(1))
+        it = step_costs(lambda: loop._train_iter(runner), 5, 1)
+
+        # the bf16 convs against float32 ones on the same batch
+        view = batch["obs"]
+        with torch.no_grad():
+            f_bf16 = state.encoder(view)
+            state.encoder.compute_dtype = torch.float32
+            f_f32 = state.encoder(view)
+        gap = float((f_bf16 - f_f32).abs().max())
+
+        # one step, float32 convs, on the card and on a CPU copy, on a
+        # small batch (the CPU's convs at batch 128 take tens of seconds)
+        rows = VISUAL_CHECK_ROWS
+        batch = {k: v[:rows] for k, v in batch.items()}
+        draws = tuple(d[:rows] for d in draws)
+        cpu_algo = SACAE(algo.action_size, algo.config,
+                         net_size=algo.hidden[0],
+                         num_hidden_layers=len(algo.hidden), device="cpu")
+        cpu_state = restore_into(cpu_algo.init(0), to_tree(state))
+        for s in (state, cpu_state):
+            for m in (s.encoder, s.target_encoder, s.decoder):
+                m.compute_dtype = torch.float32
+            s.step = 0
+        algo.train_step(state, batch, *draws)
+        cpu_algo.train_step(cpu_state, {k: v.cpu() for k, v in
+                                        batch.items()},
+                            *(d.cpu() for d in draws))
+        err = compare_trees(f"visual {what} SAC-AE step", to_tree(state),
+                            to_tree(cpu_state), **VISUAL_PIN)
+        spec_h = full["num_epochs"] * (full["num_steps_per_epoch"] // n) \
+            * it[0] / 3.6e6
+        print(f"visual {what} epoch 0 ({seconds:.1f} s for the call): "
+              + ", ".join(f"{k} {row[k]:.6g}" for k in metrics
+                          + EVAL_COLUMNS[:2] + ["TrainTime", "EvalTime"])
+              + f"; {iters} iterations of K = {K} at batch "
+              f"{loop.config.batch_size}, image {algo.config.image_size} px; "
+              f"an even SAC-AE step {even[0]:.3f} ms of wall time, "
+              f"{even[1]:.0f} device operations, {even[2]:.3f} ms of device "
+              f"time; an odd step {odd[0]:.3f} ms, {odd[1]:.0f} operations, "
+              f"{odd[2]:.3f} ms; an iteration {it[0]:.3f} ms, {it[1]:.0f} "
+              f"operations, {it[2]:.3f} ms of device time; ring "
+              f"{ring_bytes / 1e9:.4f} GB, peak device memory "
+              f"{peak / 2**30:.3f} GiB; snapshots epoch_0 "
+              f"{sizes['epoch_0'] / 2**20:.1f} MiB, last "
+              f"{sizes['last'] / 2**20:.1f} MiB, best "
+              f"{sizes['best'] / 2**20:.2f} MiB, saved in "
+              f"{sum(save_s):.2f} s, 'last' loaded in {load_s:.2f} s; bf16 "
+              f"vs float32 features max |gap| {gap:.4g}; a float32 step "
+              f"({rows} rows) on the card vs the CPU max |err| {err:.3g}; "
+              f"the spec's {full['num_epochs']} epochs at this iteration "
+              f"time: {spec_h:.3f} h of training; on {card}")
+        result["launches"][f"visual_{what}"] = launches
+        result[what] = {
+            "seconds": seconds, "train_time": row["TrainTime"],
+            "eval_time": row["EvalTime"],
+            "average_return": row["AverageReturn"],
+            "even_step": even, "odd_step": odd, "iteration": it,
+            "ring_bytes": ring_bytes, "peak_bytes": peak,
+            "snapshot_bytes": sizes, "save_s": sum(save_s),
+            "load_s": load_s, "bf16_gap": gap, "card_vs_cpu": err,
+            "spec_hours": spec_h}
+        del runner, state, batch, loop, seen
+        torch.cuda.empty_cache()
+
+    # GAIL with the cnn discriminator on pendulum_pixels
+    g = CNN_GAIL
+    vec = make_vec("pendulum_pixels", g["envs"])
+    demos = collect_transitions(
+        vec, lambda obs, nz: nz.warmup_action((g["envs"], 1)),
+        g["demo_steps"], Noise(3, vec.env.device))
+    obs_dim = int(math.prod(vec.env.observation_size))
+
+    class FlatSAC:
+        """The inner SAC on flattened frames / 255 (the adapter of
+        tests/test_il.py::test_visual_gail_cnn_disc_epoch)."""
+
+        def __init__(self, sac):
+            self.sac, self.device = sac, sac.device
+            self.init, self.act_noise = sac.init, sac.act_noise
+
+        def _flat(self, obs):
+            return obs.reshape(obs.shape[0], -1) / 255.0
+
+        def act(self, state, obs, eps=None, deterministic=False):
+            return self.sac.act(state, self._flat(obs), eps,
+                                deterministic=deterministic)
+
+        def train_step(self, state, batch, eps_next, eps_new):
+            b = dict(batch, obs=self._flat(batch["obs"]),
+                     next_obs=self._flat(batch["next_obs"]))
+            return self.sac.train_step(state, b, eps_next, eps_new)
+
+    sac = SAC(obs_dim, 1, SACConfig(), net_size=32, num_hidden_layers=1)
+    gail = AdvIRL(obs_dim, 1, FlatSAC(sac), demos, AdvIRLConfig(
+        mode="gail", disc_type="cnn", disc_hid_dim=32, disc_num_blocks=2,
+        disc_num_filters=8, disc_optim_batch_size=g["batch"],
+        policy_optim_batch_size=g["batch"], grad_pen_weight=1.0))
+    loop = OffPolicyLoop(vec, gail, OffPolicyConfig(
+        batch_size=g["batch"], replay_capacity=512,
+        min_steps_before_training=g["batch"]))
+    for k in counters.values():
+        k.launches = 0
+    runner = loop.warmup(loop.init(0))
+    runner, m = loop.train_epoch(runner, g["epoch_steps"])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    check_launches("visual cnn GAIL", (("(1 epoch)", launches,
+                                        NO_LAUNCHES),))
+    bad = [k for k, v in m.items() if not math.isfinite(v)]
+    if bad or not {"disc_ce_loss", "disc_acc", "disc_rew_mean"} <= set(m) \
+            or m["disc_rew_mean"] < 0:
+        fail(f"visual cnn GAIL: metrics {m}")
+    noise = Noise(67, vec.env.device)
+    disc = step_costs(lambda: gail._disc_update(runner.algo_state,
+                                                runner.replay, noise))
+    print(f"visual cnn GAIL epoch ({g['envs']} envs of 64 px, batch "
+          f"{g['batch']}): " + ", ".join(f"{k} {m[k]:.6g}" for k in (
+              "disc_ce_loss", "disc_acc", "disc_grad_pen", "disc_rew_mean"))
+          + f"; a discriminator step {disc[0]:.3f} ms of wall time, "
+          f"{disc[1]:.0f} device operations, {disc[2]:.3f} ms of device "
+          f"time; on {card}")
+    result["launches"]["visual_cnn_gail"] = launches
+    result["cnn_gail"] = {"metrics": m, "disc_step": disc}
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3017,6 +3309,8 @@ def main() -> int:
     imitation = imitation_phase(card, counters, k1_step_check)
     # ---- 17. HER and GCSL on reach2d --------------------------------------
     goal = goal_phase(card, counters)
+    # ---- 18. SAC-AE, RAD, CURL on pendulum_pixels; the cnn discriminator --
+    visual = visual_phase(card, counters)
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -3106,7 +3400,8 @@ def main() -> int:
     # the ant path's; `launches_by_path` adds the launcher's run A, the
     # GAIL launcher's run A, TD3's and DQN's run A, the 1-epoch runs of
     # DDPG, SAC-V and discrete SAC, PPO's run, the rnn GAIL's run A,
-    # MBPO's run, phase 16's four runs and phase 17's three
+    # MBPO's run, phase 16's four runs, phase 17's three and phase 18's
+    # four (no kernel launches on the visual path)
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
              "gail": gail["launches"], "td3": td3["launches"],
@@ -3114,7 +3409,7 @@ def main() -> int:
                 for name in ("ddpg", "sac_v", "dqn", "discrete_sac")},
              "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"],
              "mbpo": mbpo["launches"], **imitation["launches"],
-             **goal["launches"]}
+             **goal["launches"], **visual["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -57,11 +57,20 @@ package's draws:
 The JAX package derives the same draws from its keys (adv_irl.py:259-262,
 :372-393, :451-483).
 
+The image discriminator (`disc_type: cnn`, models/discriminators.py
+`CNNDisc`) scores (image obs, action) pairs: uint8 frames are divided by
+255; a discriminator step interpolates both inputs with one eps a row
+(eps [n, 1] for the action, the same values as [n, 1, 1, 1] for the
+image) and takes the penalty's gradient norm over both together (JAX
+adv_irl.py:211-240); it scores (obs, action) only, so `state_only`
+raises.  `feature_fn(policy_state, obs)` (the visual AdvIRL, reference
+adv_irl_visual.py:54-55) feeds an mlp or rnn discriminator frozen
+features of the inner trainer's encoder, detached, in place of the obs;
+`feature_dim` is their width.
+
 As the port's SAC, the update runs in place: the discriminator's
 parameters, running averages and Adam moments, and the inner state, are
-updated in their tensors, and the same state object is returned.  The
-image (cnn) discriminator and frozen-encoder features are ROADMAP.md
-section 1 item 2.7: both raise.
+updated in their tensors, and the same state object is returned.
 """
 
 from __future__ import annotations
@@ -76,7 +85,7 @@ from ilswiss_tpu_torch.algorithms.sac import Adam
 from ilswiss_tpu_torch.data.replay import (
     ReplayState, replay_sample, replay_sample_window,
 )
-from ilswiss_tpu_torch.models.discriminators import MLPDisc
+from ilswiss_tpu_torch.models.discriminators import CNNDisc, MLPDisc
 from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
 
 MODES = ("airl", "gail", "gail2", "fairl")
@@ -110,17 +119,18 @@ class AdvIRLConfig:
     disc_hid_act: str = "relu"
     disc_use_bn: bool = True
     disc_clamp_magnitude: float = 10.0
-    # mlp | rnn (trajectory windows); cnn (item 2.7) raises
+    # mlp | rnn (trajectory windows) | cnn (image obs)
     disc_type: str = "mlp"
     disc_traj_len: int = 16          # rnn window length T
     disc_rnn_cell: str = "gru"
     disc_rnn_layers: int = 2
     disc_rnn_bidirectional: bool = True
+    disc_num_filters: int = 32       # cnn conv width
 
 
 @dataclass
 class AdvIRLState:
-    disc: MLPDisc | RNNDisc  # parameters (and BatchNorm running averages)
+    disc: MLPDisc | RNNDisc | CNNDisc  # parameters (+ BatchNorm averages)
     disc_opt: Adam
     policy: Any              # the inner trainer's state (SACState)
     expert: ReplayState      # the demos, a full buffer
@@ -145,24 +155,33 @@ class AdvIRL:
 
     def __init__(self, obs_size: int, action_size: int, policy_trainer,
                  expert_replay: ReplayState,
-                 config: AdvIRLConfig = AdvIRLConfig(), feature_fn=None):
+                 config: AdvIRLConfig = AdvIRLConfig(), feature_fn=None,
+                 feature_dim: int | None = None):
         if config.mode not in MODES:
             raise ValueError(f"unknown AdvIRL mode {config.mode!r}; "
                              f"known: {MODES}")
-        not_ported = "is not ported to ilswiss_tpu_torch yet: ROADMAP.md " \
-            "section 1 item"
-        if config.disc_type == "cnn" or feature_fn is not None:
-            raise NotImplementedError(
-                f"the visual AdvIRL (cnn discriminator, encoder features) "
-                f"{not_ported} 2.7")
-        if config.disc_type not in ("mlp", "rnn"):
+        if config.disc_type not in ("mlp", "rnn", "cnn"):
             raise ValueError(f"unknown disc_type {config.disc_type!r}")
+        if config.disc_type == "cnn" and config.state_only:
+            raise ValueError("the cnn discriminator scores (obs, action): "
+                             "state_only is not supported")
+        if config.disc_type == "cnn" and (
+                expert_replay.data["obs"].dim() != 4):
+            raise ValueError("the cnn discriminator needs image "
+                             "observations [H, W, C]; the demos' obs are "
+                             f"{tuple(expert_replay.data['obs'].shape[1:])}")
+        if feature_fn is not None and feature_dim is None:
+            raise ValueError("feature_fn needs feature_dim")
         self.rnn = config.disc_type == "rnn"
+        self.cnn = config.disc_type == "cnn"
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
         self.policy_trainer = policy_trainer
         self.expert_replay = expert_replay
+        self.feature_fn = feature_fn
+        if feature_fn is not None:
+            obs_size = feature_dim
         self.device = policy_trainer.device
         self.disc_input_dim = (2 * obs_size if config.state_only
                                else obs_size + action_size)
@@ -177,7 +196,15 @@ class AdvIRL:
         cfg = self.config
         policy = self.policy_trainer.init(seed)
         gen = torch.Generator().manual_seed(seed + DISC_SEED_OFFSET)
-        if self.rnn:
+        if self.cnn:
+            disc = CNNDisc(tuple(self.expert_replay.data["obs"].shape[1:]),
+                           self.action_size, gen,
+                           num_filters=cfg.disc_num_filters,
+                           num_layer_blocks=cfg.disc_num_blocks,
+                           hid_dim=cfg.disc_hid_dim,
+                           hid_act=cfg.disc_hid_act,
+                           clamp_magnitude=cfg.disc_clamp_magnitude)
+        elif self.rnn:
             disc = RNNDisc(self.disc_input_dim, gen, hid_dim=cfg.disc_hid_dim,
                            cell_type=cfg.disc_rnn_cell,
                            num_layers=cfg.disc_rnn_layers,
@@ -216,17 +243,32 @@ class AdvIRL:
                                        deterministic=deterministic)
 
     # ------------------------------------------------------------------
-    def _disc_input(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        other = batch["next_obs"] if self.config.state_only \
-            else batch["action"]
-        return torch.cat([batch["obs"], other], dim=-1)
+    def _disc_input(self, state: AdvIRLState,
+                    batch: Dict[str, torch.Tensor]):
+        """The discriminator's input: [.., D] (mlp) or [.., T, D] (rnn)
+        concatenations, or an (image obs, action) pair (cnn)."""
+        obs, other = batch["obs"], batch.get("next_obs")
+        if self.cnn:
+            if obs.dtype == torch.uint8:
+                obs = obs.to(torch.float32) / 255.0
+            return obs, batch["action"]
+        if self.feature_fn is not None:
+            with torch.no_grad():
+                obs = self.feature_fn(state.policy, obs)
+                if self.config.state_only:
+                    other = self.feature_fn(state.policy, other)
+        if not self.config.state_only:
+            other = batch["action"]
+        return torch.cat([obs, other], dim=-1)
 
-    def _logits(self, disc, x: torch.Tensor, train: bool,
+    def _logits(self, disc, x, train: bool,
                 stats: list | None = None) -> torch.Tensor:
-        """The discriminator's logits; an rnn discriminator has no train
-        mode (no BatchNorm)."""
+        """The discriminator's logits; an rnn or cnn discriminator has no
+        train mode (no BatchNorm)."""
         if self.rnn:
             return disc(x)
+        if self.cnn:
+            return disc(*x)
         return disc(x, train=train, stats=stats)
 
     def _windows(self, replay: ReplayState, noise, batch_size: int):
@@ -250,23 +292,28 @@ class AdvIRL:
             n = e_valid.shape[0]
             # zero the steps past each window's episode, so the (reversed)
             # recurrence never mixes in a neighbouring episode
-            expert_in = self._disc_input(expert) * e_valid[..., None]
-            policy_in = self._disc_input(policy) * p_valid[..., None]
+            expert_in = self._disc_input(state, expert) * e_valid[..., None]
+            policy_in = self._disc_input(state, policy) * p_valid[..., None]
             eps = noise.interpolation(n).reshape(n, 1, 1)
             valid = torch.cat([e_valid, p_valid]).to(torch.float32)[..., None]
             ones = (n, 1, 1)                    # targets broadcast over T
         else:
             n = cfg.disc_optim_batch_size
             expert_in = self._disc_input(
-                replay_sample(state.expert, noise.replay(n)))
-            policy_in = self._disc_input(replay_sample(replay,
-                                                       noise.replay(n)))
+                state, replay_sample(state.expert, noise.replay(n)))
+            policy_in = self._disc_input(
+                state, replay_sample(replay, noise.replay(n)))
             eps = noise.interpolation(n)
             valid = None
             ones = (n, 1)
-        x = torch.cat([expert_in, policy_in], dim=0)
-        targets = torch.cat([torch.ones(ones, device=x.device),
-                             torch.zeros(ones, device=x.device)])
+        dev = self.device
+        if self.cnn:
+            x = tuple(torch.cat([e, p], dim=0)
+                      for e, p in zip(expert_in, policy_in))
+        else:
+            x = torch.cat([expert_in, policy_in], dim=0)
+        targets = torch.cat([torch.ones(ones, device=dev),
+                             torch.zeros(ones, device=dev)])
 
         disc = state.disc
         stats: list = []
@@ -281,21 +328,29 @@ class AdvIRL:
             acc = torch.sum(hit * valid) / denom
         loss = ce
         if cfg.use_grad_pen:
-            interp = (eps * expert_in + (1.0 - eps) * policy_in
-                      ).requires_grad_(True)
-            (g,) = torch.autograd.grad(
-                torch.sum(self._logits(disc, interp, train=True)), interp,
-                create_graph=True)
-            # one norm a row (mlp) or a window (rnn, over T x D)
-            norm = torch.sqrt(torch.clamp_min(
-                torch.sum((g * g).reshape(g.shape[0], -1), dim=-1), 1e-12))
+            pairs = (zip(expert_in, policy_in) if self.cnn
+                     else [(expert_in, policy_in)])
+            interp = []
+            for e, p in pairs:
+                w = eps.reshape(eps.shape[:1] + (1,) * (e.dim() - 1))
+                interp.append((w * e + (1.0 - w) * p).requires_grad_(True))
+            gs = torch.autograd.grad(
+                torch.sum(self._logits(
+                    disc, tuple(interp) if self.cnn else interp[0],
+                    train=True)),
+                interp, create_graph=True)
+            # one norm a row (mlp; cnn over image and action together) or
+            # a window (rnn, over T x D)
+            sq = sum(torch.sum((g * g).reshape(g.shape[0], -1), dim=-1)
+                     for g in gs)
+            norm = torch.sqrt(torch.clamp_min(sq, 1e-12))
             grad_pen = torch.mean((norm - 1.0) ** 2)
             loss = ce + cfg.grad_pen_weight * grad_pen
         else:
-            grad_pen = torch.zeros((), device=x.device)
+            grad_pen = torch.zeros((), device=dev)
         grads = torch.autograd.grad(loss, state.disc_opt.params)
         state.disc_opt.step(grads)
-        if not self.rnn:
+        if not (self.rnn or self.cnn):
             disc.update_batch_stats(stats)
         return state, {"disc_ce_loss": ce.detach(), "disc_acc": acc,
                        "disc_grad_pen": grad_pen.detach()}
@@ -321,7 +376,7 @@ class AdvIRL:
     def synthesize_rewards(self, state: AdvIRLState,
                            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """[B] rewards of `batch` from the discriminator in eval mode."""
-        logits = self._logits(state.disc, self._disc_input(batch),
+        logits = self._logits(state.disc, self._disc_input(state, batch),
                               train=False)
         return self._mode_reward(logits[..., 0])
 
@@ -336,7 +391,8 @@ class AdvIRL:
                                        cfg.policy_optim_batch_size)
             mask = valid.to(torch.float32)
             with torch.no_grad():
-                logits = state.disc(self._disc_input(win) * valid[..., None])
+                logits = state.disc(self._disc_input(state, win)
+                                    * valid[..., None])
             rew = self._mode_reward(logits[..., 0]) * mask
             # the masked steps keep their obs, action and next_obs: only
             # their reward is zeroed (the JAX package's batch)

@@ -40,20 +40,26 @@ def round_capacity(capacity: int, write_batch: int) -> int:
     return ((capacity + write_batch - 1) // write_batch) * write_batch
 
 
-def replay_init(capacity: int, obs_size: int, action_size: int,
-                write_batch: int, device, discrete: bool = False
-                ) -> ReplayState:
+def replay_init(capacity: int, obs_size, action_size: int,
+                write_batch: int, device, discrete: bool = False,
+                obs_dtype: torch.dtype = torch.float32) -> ReplayState:
     """The ring, its capacity rounded up to a multiple of `write_batch`;
-    a `discrete` env's actions are int32 indices [capacity]."""
+    a `discrete` env's actions are int32 indices [capacity].  `obs_size`
+    is an int (vector obs) or a shape tuple (image obs, [H, W, C]); obs
+    and next_obs are kept at `obs_dtype` (JAX replay.py:47-67)."""
     capacity = round_capacity(capacity, write_batch)
     kw = dict(dtype=torch.float32, device=device)
+    obs_shape = ((obs_size,) if isinstance(obs_size, int)
+                 else tuple(obs_size))
     action = (torch.zeros((capacity,), dtype=torch.int32, device=device)
               if discrete else torch.zeros((capacity, action_size), **kw))
     data = {
-        "obs": torch.zeros((capacity, obs_size), **kw),
+        "obs": torch.zeros((capacity,) + obs_shape, dtype=obs_dtype,
+                           device=device),
         "action": action,
         "reward": torch.zeros((capacity,), **kw),
-        "next_obs": torch.zeros((capacity, obs_size), **kw),
+        "next_obs": torch.zeros((capacity,) + obs_shape, dtype=obs_dtype,
+                                device=device),
         "terminal": torch.zeros((capacity,), **kw),
     }
     return ReplayState(

@@ -2,8 +2,8 @@
 
 `make(name)` returns a static `Environment`, `make_vec(name, num_envs)`
 the lockstep vectorized env.  Ported: the MuJoCo locomotion models,
-pendulum, mountain, cartpole and the goal env reach2d.  Not ported yet:
-pendulum_pixels (ROADMAP section 1 item 2.7).
+pendulum, mountain, cartpole, the goal env reach2d and pendulum_pixels
+(image observations, NHWC).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from ilswiss_tpu_torch.envs.base import Environment, EnvState, StepOutput
 from ilswiss_tpu_torch.envs.vector import Transition, VectorEnv
 from ilswiss_tpu_torch.envs import locomotion
 from ilswiss_tpu_torch.envs.classic import (
-    CartPole, MountainCarContinuous, Pendulum,
+    CartPole, MountainCarContinuous, Pendulum, PendulumPixels,
 )
 from ilswiss_tpu_torch.envs.goal import GoalReach2D
 
@@ -30,6 +30,7 @@ register("pendulum", Pendulum)
 register("mountain", MountainCarContinuous)
 register("cartpole", CartPole)
 register("reach2d", GoalReach2D)
+register("pendulum_pixels", PendulumPixels)
 locomotion.register_all(register)
 
 

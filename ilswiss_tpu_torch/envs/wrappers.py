@@ -9,7 +9,8 @@ selects a wrapped state as it selects the inner one.  The reference's
 wrappers are rlkit/envs/wrappers.py:53 (ScaledEnv) and :143 (MinmaxEnv);
 the absorbing states are DAC's (adv_irl.py:144-171).  `DiscretEnv`
 (JAX wrappers.py:200-240) turns a Box env's actions into indices of an
-action table.  `FrameStackEnv` comes with ROADMAP.md section 1 item 2.7.
+action table.  `FrameStackEnv` (JAX wrappers.py:157-198) stacks the last
+k observations along the trailing axis.
 A wrapper of a goal env forwards its `goal_size` and `compute_reward`.
 """
 
@@ -200,3 +201,42 @@ class DiscretEnv(_DelegatingEnv):
 
     def scale_action(self, normalized: torch.Tensor) -> torch.Tensor:
         return normalized  # discrete indices pass through
+
+
+class FrameStackEnv(_DelegatingEnv):
+    """The last k observations stacked along the trailing axis (JAX
+    `FrameStackEnv`, wrappers.py:157-198; reference rlkit/envs/wrappers.py:
+    367): image obs [B, H, W, C] -> [B, H, W, C * k], vector obs [B, D] ->
+    [B, D * k], oldest first.  At reset all k frames are the first
+    observation.  The state's `internal` is the inner env's tensors
+    followed by the k frames, so `VectorEnv`'s autoreset selects them
+    as it selects the inner state."""
+
+    def __init__(self, inner: Environment, k: int = 4):
+        super().__init__(inner)
+        self.k = k
+        size = inner.observation_size
+        if isinstance(size, tuple):
+            self.observation_size = size[:-1] + (size[-1] * k,)
+        else:
+            self.observation_size = size * k
+
+    def reset(self, noise) -> EnvState:
+        s = self.inner.reset(noise)
+        frames = (s.obs,) * self.k
+        return EnvState(internal=tuple(s.internal) + frames,
+                        obs=torch.cat(frames, dim=-1), t=s.t)
+
+    def step(self, state: EnvState, action: torch.Tensor) -> StepOutput:
+        inner_internal = state.internal[:-self.k]
+        frames = state.internal[-self.k:]
+        out = self.inner.step(
+            EnvState(internal=inner_internal, obs=frames[-1], t=state.t),
+            action)
+        frames = frames[1:] + (out.obs,)
+        obs = torch.cat(frames, dim=-1)
+        return StepOutput(
+            state=EnvState(internal=tuple(out.state.internal) + frames,
+                           obs=obs, t=out.state.t),
+            obs=obs, reward=out.reward, terminal=out.terminal,
+            truncation=out.truncation)

@@ -1,7 +1,7 @@
 """Variant-dict -> training run (counterpart:
 ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL,
-PPO, MBPO, BC, DAgger, expert demo generation, HER, GCSL and policy
-evaluation).
+PPO, MBPO, BC, DAgger, expert demo generation, HER, GCSL, SAC-AE / RAD /
+CURL on device pixel envs and policy evaluation).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -66,11 +66,6 @@ GYM_ENV_IDS: Dict[str, str] = {
     "fetch-slide": "FetchSlide-v4",
 }
 
-# device envs of the JAX registry that the port has not ported yet, with
-# the ROADMAP.md section 1 item that ports each
-UNPORTED_DEVICE_ENVS: Dict[str, str] = {
-    "pendulum_pixels": "2.7",
-}
 HOST_ITEM = "2.8"
 
 
@@ -91,9 +86,6 @@ def _is_host_env(env_name: str) -> bool:
     gymnasium (a typo'd device-env name must not become a host run)."""
     if env_name in ENV_REGISTRY:
         return False
-    if env_name in UNPORTED_DEVICE_ENVS:
-        raise _not_ported(f"device env {env_name!r}",
-                          UNPORTED_DEVICE_ENVS[env_name])
     if env_name in GYM_ENV_IDS:
         return True
     if "-v" in env_name:
@@ -1084,7 +1076,7 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     `demos_listing` (default demos_listing.yaml) (reference
     run_scripts/gen_expert_demos.py; the device branches of the JAX
     `run_gen_expert`, experiments.py:1839-1978).  The DMC pixel branch
-    raises naming item 2.7, a host env item 2.8; a set `load_params`
+    and a host env raise naming item 2.8; a set `load_params`
     raises ValueError (the JAX launcher never reads it).  Returns the
     path written."""
     import yaml
@@ -1098,7 +1090,8 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
         variant, "gen_expert")
     if env_name == "dmc":
-        raise _not_ported("gen_expert's DMC pixel branch", "2.7")
+        # it renders DMC on the host (envs/host_dmc.py), a host bridge
+        raise _not_ported("gen_expert's DMC pixel branch", HOST_ITEM)
     _route_host(variant, env_name)
     num_envs = max(1, num_envs)
     max_path_length = int(variant.get(
@@ -1167,6 +1160,117 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     logger.dump_tabular(0)
     logger.close()
     return out_path
+
+
+def _visual_augs(variant: Dict, img_size: int) -> tuple[tuple, int]:
+    """RAD / CURL augmentation knobs (JAX experiments.py:1151-1163): the
+    repo's `augs` / `crop_size`, or the reference's `augmentation_params`
+    (`data_augs` dash-joined, `image_size` the size after augmenting)."""
+    aug_p = _alg(variant, "augmentation_params")
+    augs = tuple(variant.get("augs") or ())
+    if not augs and aug_p.get("data_augs"):
+        augs = tuple(a.strip() for a in
+                     str(aug_p["data_augs"]).split("-") if a.strip())
+    crop = variant.get("crop_size", aug_p.get("image_size", img_size))
+    return augs, int(crop)
+
+
+class _CropActing:
+    """SAC-AE for the loop, its acting through `view` (the center crop of
+    RAD and CURL; JAX experiments.py:1461-1491)."""
+
+    def __init__(self, algo, view: Callable):
+        self.algo, self.view = algo, view
+        self.init = algo.init
+        self.act_noise = algo.act_noise
+        self.train_noise = algo.train_noise
+        self.train_step = algo.train_step
+
+    def act(self, state, obs, eps=None, deterministic=False):
+        return self.algo.act(state, self.view(obs), eps,
+                             deterministic=deterministic)
+
+
+def run_sac_ae(variant: Dict[str, Any], device=None):
+    """SAC-AE, RAD and CURL on a device pixel env (reference
+    run_scripts/sac_alpha_visual_exp_script.py; the device branch of the
+    JAX `run_sac_ae`, experiments.py:1409-1516).  With `augs` the encoder
+    is sized for the crop: training batches are augmented
+    (data/aug_replay.py, with CURL's views where cpc_update_freq > 0), and
+    acting and evaluation see center-cropped frames.  The evaluation runs
+    on the training envs for `max_path_length` steps; each epoch logs the
+    trainer's metrics, the evaluation, TotalEnvSteps, TrainTime and
+    EvalTime, and snapshots as `_run_epochs` does.  `env_name: dmc` (the
+    host DMC branch) raises naming item 2.8; a set `load_params` raises
+    ValueError (the JAX device branch never reads it, so a resume there
+    silently starts afresh and overwrites the run's snapshots)."""
+    from functools import partial
+
+    from ilswiss_tpu_torch.algorithms.sac_ae import SACAE, SACAEConfig
+    from ilswiss_tpu_torch.data.aug_replay import augmented_sample
+    from ilswiss_tpu_torch.data.augmentations import center_crop
+
+    _refuse_resume(variant, "SAC-AE")
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, "sac_ae")
+    if env_name == "dmc":
+        raise _not_ported("the DMC pixel envs (envs/host_dmc.py)",
+                          HOST_ITEM)
+    _route_host(variant, env_name)
+    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    img_size = vec.env.observation_size[0]
+    p = _alg(variant, "sac_params")
+    augs, crop_size = _visual_augs(variant, img_size)
+    use_cpc = int(p.get("cpc_update_freq", 0)) > 0
+    algo = SACAE(
+        action_size=vec.env.action_size,
+        config=SACAEConfig(
+            image_size=crop_size if augs else img_size,
+            frame_channels=vec.env.observation_size[-1],
+            feature_dim=int(variant.get("feature_dim", 50)),
+            num_conv_layers=int(variant.get("num_conv_layers", 4)),
+            num_filters=int(variant.get("num_filters", 32)),
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            policy_lr=float(p.get("policy_lr", 1e-3)),
+            qf_lr=float(p.get("qf_lr", 1e-3)),
+            encdec_lr=float(p.get("encdec_lr", 1e-3)),
+            init_alpha=float(p.get("alpha", 0.1)),
+            alpha_lr=float(p.get("alpha_lr", 1e-3)),
+            soft_target_tau=float(p.get("soft_target_tau", 0.01)),
+            enc_soft_target_tau=float(p.get("enc_soft_target_tau", 0.05)),
+            ac_update_freq=int(p.get("ac_update_freq", 2)),
+            encdec_update_freq=int(p.get("encdec_update_freq", 1)),
+            cpc_update_freq=int(p.get("cpc_update_freq", 0)),
+            target_update_freq=int(p.get("target_update_freq", 2)),
+        ),
+        device=device, **_nets(variant))
+
+    def view(obs):
+        # the encoder is sized for the crop: acting sees the center crop
+        return center_crop(obs, crop_size) if augs else obs
+
+    loop = OffPolicyLoop(
+        vec, _CropActing(algo, view),
+        OffPolicyConfig(
+            batch_size=int(rl.get("batch_size", 128)),
+            replay_capacity=int(rl.get("replay_buffer_size", 100_000)),
+            min_steps_before_training=int(
+                rl.get("min_steps_before_training", 1000)),
+            grad_steps_per_iter=_grad_steps_per_iter(rl, num_envs)),
+        sample_fn=(partial(augmented_sample, augs=augs, out_size=crop_size,
+                           cpc=use_cpc) if augs else None))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 10_000))
+    evaluator = make_evaluator(
+        vec, lambda s, o: algo.act(s, view(o), deterministic=True),
+        int(rl.get("max_path_length", 200)))
+    logger.log(f"trainer {type(algo).__name__}: {algo.config}; augs "
+               f"{augs}, crop {crop_size}, {loop.grad_steps_per_iter} "
+               f"steps an iteration")
+    return _run_epochs(lambda r: loop.train_epoch(r, steps_per_epoch),
+                       evaluator, loop.warmup(loop.init(seed)), rl, logger,
+                       seed, device)
 
 
 def run_her(variant: Dict[str, Any], device=None):
@@ -1307,11 +1411,11 @@ EXPERIMENTS: Dict[str, Callable] = {
     "gen_expert": run_gen_expert,
     "her": run_her,
     "gcsl": run_gcsl,
+    "sac_ae": run_sac_ae,
+    "sac_rad": run_sac_ae,
+    "sac_curl": run_sac_ae,
     **{name: _unported_run(name, item) for name, item in (
         ("sac_vmap_seeds", "2.10"),
         ("render_policy", "2.10"),
-        ("sac_ae", "2.7"),
-        ("sac_rad", "2.7"),
-        ("sac_curl", "2.7"),
     )},
 }

@@ -8,8 +8,10 @@ Linear -> [BatchNorm] -> act blocks, then a scalar logit clamped to
 port's own `BatchNorm` with flax's semantics, not `torch.nn.BatchNorm1d`,
 which updates its running variance with the unbiased batch variance and
 momentum 0.1 and so drifts from the JAX discriminator after one update.
-`CNNDisc` comes with ROADMAP.md section 1 item 2.7; the JAX package's
-`ResNetAIRLDisc` has no caller there and is listed under item 2.10.
+`CNNDisc` is the visual discriminator of (image, action) pairs
+(reference cnn_disc_models.py:7-77), NHWC as in the JAX package.  The JAX
+package's `ResNetAIRLDisc` has no caller there and is listed under
+ROADMAP.md section 1 item 2.10.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ilswiss_tpu_torch.models.encoders import lecun_normal_
 
 # flax's `lecun_normal`: a normal truncated at +-2 standard deviations,
 # rescaled by this constant (the truncated unit normal's std) so the
@@ -138,3 +143,58 @@ class MLPDisc(nn.Module):
         train-mode forward collected."""
         for bn, (mean, var) in zip(self.batch_norms(), stats):
             bn.update(mean, var)
+
+
+class CNNDisc(nn.Module):
+    """The visual discriminator (JAX `CNNDisc`, discriminators.py:54-94):
+    a 3x3 VALID conv of stride 2 (`conv_0`), num_layer_blocks - 1 of
+    stride 1 (`conv_{i}`), each followed by the activation; the features
+    flattened in (h, w, c) order (the JAX layout) and concatenated with
+    the action; num_layer_blocks x (Dense `dense_i` -> LayerNorm `ln_i`,
+    flax's epsilon 1e-6 -> act); a logit clamped to +-clamp_magnitude.
+    Float32 throughout; flax's default inits (lecun_normal kernels, zero
+    biases).  AdvIRL builds it without BatchNorm, as the JAX AdvIRL does,
+    so the port has none.  obs [B, H, W, C], action [B, A] -> [B, 1]."""
+
+    def __init__(self, obs_shape, action_size: int,
+                 generator: torch.Generator, num_filters: int = 32,
+                 num_layer_blocks: int = 2, hid_dim: int = 100,
+                 hid_act: str = "relu", clamp_magnitude: float = 10.0):
+        super().__init__()
+        self.act = resolve_act(hid_act)
+        self.num_layer_blocks = num_layer_blocks
+        self.clamp_magnitude = clamp_magnitude
+        h, _, c = obs_shape
+        width = c
+        for i in range(num_layer_blocks):
+            conv = nn.Conv2d(width, num_filters, 3)
+            lecun_normal_(conv.weight, width * 9, generator)
+            with torch.no_grad():
+                conv.bias.zero_()
+            self.add_module(f"conv_{i}", conv)
+            width = num_filters
+        hw = (h - 3) // 2 + 1 - 2 * (num_layer_blocks - 1)
+        width = num_filters * hw * hw + action_size
+        for i in range(num_layer_blocks):
+            dense = nn.Linear(width, hid_dim)
+            _lecun_normal_(dense, generator)
+            self.add_module(f"dense_{i}", dense)
+            self.add_module(f"ln_{i}", nn.LayerNorm(hid_dim, eps=1e-6))
+            width = hid_dim
+        self.logit = nn.Linear(width, 1)
+        _lecun_normal_(self.logit, generator)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor
+                ) -> torch.Tensor:
+        x = obs.permute(0, 3, 1, 2)
+        for i in range(self.num_layer_blocks):
+            x = self.act(F.conv2d(x, getattr(self, f"conv_{i}").weight,
+                                  getattr(self, f"conv_{i}").bias,
+                                  stride=2 if i == 0 else 1))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = torch.cat([x, action], dim=-1)
+        for i in range(self.num_layer_blocks):
+            x = self.act(getattr(self, f"ln_{i}")(
+                getattr(self, f"dense_{i}")(x)))
+        x = self.logit(x)
+        return torch.clamp(x, -self.clamp_magnitude, self.clamp_magnitude)

@@ -24,7 +24,8 @@ one `train_step`, each a tuple of tensors drawn through named `Noise`
 methods (SAC: `act`, then `train`; see each algorithm's docstring).  An
 iteration draws in this order: the acting draws (warmup: `warmup_action`,
 or `warmup_index` for a discrete env), `reset`, then per gradient step
-`replay` and the step's draws.
+the batch's draws (`replay`; an augmenting `sample_fn` adds its own, in
+data/aug_replay.py's order) and the step's draws.
 
 A discrete env (`env.discrete`, cartpole) gets a ring of int32 action
 indices, and its warmup takes integer actions uniform in [0,
@@ -37,7 +38,7 @@ training iteration.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -168,6 +169,16 @@ class Noise:
         """N(0, 1) noise of a model step's Gaussian sample."""
         return self._normal(shape)
 
+    def augment_index(self, shape, low: int, high: int) -> torch.Tensor:
+        """Integers uniform in [low, high): an image augmentation's
+        offsets and boxes (data/augmentations.py)."""
+        return torch.randint(low, high, shape, device=self.device,
+                             generator=self.generator)
+
+    def augment_uniform(self, shape) -> torch.Tensor:
+        """Uniforms in [0, 1): an image augmentation's coins and factors."""
+        return self._uniform(shape, 0.0, 1.0)
+
     def hindsight(self, batch_size: int, num_envs: int) -> tuple:
         """The draws of one hindsight batch (data/her.py): the env of each
         row, int64 [batch_size] uniform in [0, num_envs), then uniforms
@@ -186,6 +197,12 @@ class RunnerState:
     total_env_steps: int
 
 
+def sample_uniform(replay: ReplayState, noise, batch_size: int
+                   ) -> Dict[str, torch.Tensor]:
+    """The loop's default batch: `replay_sample` of `noise.replay` rows."""
+    return replay_sample(replay, noise.replay(batch_size))
+
+
 class OffPolicyLoop:
     """Off-policy runtime for an algorithm with `init(seed)`,
     `act(state, obs, *draws)` with `act_noise(noise, n)`, and either
@@ -193,12 +210,21 @@ class OffPolicyLoop:
     updates and draws itself), or `train_step(state, batch, *draws)` with
     `train_noise(noise, batch_size)` and, where `use_fused_chain` is set,
     `train_chain(state, replay, noise, batch_size, num_steps)` (SAC).
-    SAC, SAC-V, TD3, DDPG, discrete SAC, DQN and AdvIRL fit."""
+    SAC, SAC-V, TD3, DDPG, discrete SAC, DQN, AdvIRL and SAC-AE fit.
 
-    def __init__(self, vec_env: VectorEnv, algo, config: OffPolicyConfig):
+    `sample_fn(replay, noise, batch_size)` makes each gradient step's batch
+    (JAX loop.py:64-71; RAD / CURL plug data/aug_replay.py's
+    `augmented_sample` in here).  The K steps go through `train_chain`
+    only with the default `sample_uniform`, as the JAX gate
+    `sample_fn is replay_sample` (:153-159) has it: the fused chain samples
+    the ring itself."""
+
+    def __init__(self, vec_env: VectorEnv, algo, config: OffPolicyConfig,
+                 sample_fn: Callable | None = None):
         self.vec_env = vec_env
         self.algo = algo
         self.config = config
+        self.sample_fn = sample_fn or sample_uniform
         self.device = vec_env.env.device
         self.grad_steps_per_iter = (
             config.grad_steps_per_iter
@@ -253,7 +279,8 @@ class OffPolicyLoop:
             runner.algo_state, metrics = self.algo.train_call(
                 runner.algo_state, runner.replay, runner.noise)
             return runner, metrics
-        if getattr(self.algo, "use_fused_chain", False):
+        if (getattr(self.algo, "use_fused_chain", False)
+                and self.sample_fn is sample_uniform):
             runner.algo_state, metrics = self.algo.train_chain(
                 runner.algo_state, runner.replay, runner.noise,
                 cfg.batch_size, self.grad_steps_per_iter)
@@ -261,8 +288,8 @@ class OffPolicyLoop:
         sums: Dict[str, torch.Tensor] = {}
         state = runner.algo_state
         for _ in range(self.grad_steps_per_iter):
-            batch = replay_sample(runner.replay,
-                                  runner.noise.replay(cfg.batch_size))
+            batch = self.sample_fn(runner.replay, runner.noise,
+                                   cfg.batch_size)
             state, metrics = self.algo.train_step(
                 state, batch,
                 *self.algo.train_noise(runner.noise, cfg.batch_size))

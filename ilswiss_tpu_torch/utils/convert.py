@@ -33,7 +33,17 @@ maps:
   * BC's and GCSL's states are one policy (tanh-Gaussian, or GCSL's
     categorical `mlp`) and its plain optax.adam;
   * a goal env's observation is a dict of arrays, and the hindsight ring
-    keeps the JAX field names.
+    keeps the JAX field names;
+  * a flax Conv kernel is [kh, kw, in, out] and `conv2d`'s weight
+    [out, in, kh, kw]; a flax ConvTranspose kernel [kh, kw, in, out] is
+    applied unflipped (transpose_kernel=False), while `conv_transpose2d`
+    (the adjoint of a conv) flips its [in, out, kh, kw] weight, so the
+    converter transposes AND flips both spatial axes; a flax LayerNorm's
+    `scale` is `nn.LayerNorm.weight`;
+  * SAC-AE's optimizers are plain optax.adams over tuples of trees:
+    `qf_opt` over (encoder, qf1, qf2), `encdec_opt` over (encoder,
+    decoder), `cpc_opt` over (encoder, W), and `policy_opt`, `alpha_opt`;
+    its step counter becomes an int.
 
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
@@ -56,13 +66,15 @@ from ilswiss_tpu_torch.algorithms.discrete_sac import DiscreteSACState
 from ilswiss_tpu_torch.algorithms.dqn import DQNState
 from ilswiss_tpu_torch.algorithms.mbpo import MBPO, MBPORunnerState
 from ilswiss_tpu_torch.algorithms.sac import SAC, Adam, SACState, TwinQ
+from ilswiss_tpu_torch.algorithms.sac_ae import SACAE, SACAEState
 from ilswiss_tpu_torch.algorithms.sac_v import SACVState
 from ilswiss_tpu_torch.algorithms.td3 import TD3State
 from ilswiss_tpu_torch.data.her import HindsightReplayState
 from ilswiss_tpu_torch.data.replay import ReplayState
 from ilswiss_tpu_torch.envs.base import EnvState
 from ilswiss_tpu_torch.models.bnn import InputNormalizer
-from ilswiss_tpu_torch.models.discriminators import MLPDisc
+from ilswiss_tpu_torch.models.discriminators import CNNDisc, MLPDisc
+from ilswiss_tpu_torch.models.encoders import PixelDecoder, PixelEncoder
 from ilswiss_tpu_torch.models.policies import (
     GaussianPolicy, TanhGaussianPolicy,
 )
@@ -72,9 +84,10 @@ from ilswiss_tpu_torch.runtime.onpolicy import (
 )
 from ilswiss_tpu_torch.utils.running_stats import RunningMeanStd
 
-# (port tensor, flax path, transposed); the lists that feed optax.flatten's
-# moments are in ravel_pytree order
-_Leaf = Tuple[torch.Tensor, Tuple[str, ...], bool]
+# (port tensor, flax path, layout); the lists that feed optax.flatten's
+# moments are in ravel_pytree order.  The layout is False (as is), True
+# (a Dense kernel, transposed), "conv" or "deconv" (see the docstring)
+_Leaf = Tuple[torch.Tensor, Tuple[str, ...], Any]
 
 
 def _module_leaves(module: torch.nn.Module) -> List[_Leaf]:
@@ -111,14 +124,23 @@ def _get(tree, path):
     return tree
 
 
-def _to_flax(t: torch.Tensor, transposed: bool) -> np.ndarray:
+def _to_flax(t: torch.Tensor, layout) -> np.ndarray:
     x = t.detach().cpu().numpy()
-    return x.T if transposed else x
+    if layout == "conv":                     # [out, in, kh, kw] -> flax
+        return x.transpose(2, 3, 1, 0)
+    if layout == "deconv":                   # flipped [in, out, kh, kw]
+        return x[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return x.T if layout else x
 
 
-def _from_flax(x, t: torch.Tensor, transposed: bool) -> torch.Tensor:
+def _from_flax(x, t: torch.Tensor, layout) -> torch.Tensor:
     x = np.asarray(x)
-    x = x.T if transposed else x
+    if layout == "conv":
+        x = x.transpose(3, 2, 0, 1)
+    elif layout == "deconv":
+        x = x.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    elif layout:
+        x = x.T
     return torch.as_tensor(np.array(x), dtype=t.dtype,
                            device=t.device).reshape(t.shape)
 
@@ -332,6 +354,8 @@ def rnn_disc_to_numpy(disc: RNNDisc) -> Dict[str, Any]:
 
 
 def _any_disc_leaves(disc) -> List[_Leaf]:
+    if isinstance(disc, CNNDisc):
+        return _cnn_disc_leaves(disc)
     return (_rnn_disc_leaves(disc) if isinstance(disc, RNNDisc)
             else _disc_leaves(disc))
 
@@ -344,6 +368,8 @@ def adv_irl_state_from_jax(algo: AdvIRL, jstate) -> AdvIRLState:
     state = algo.init(0)
     if isinstance(state.disc, RNNDisc):
         rnn_disc_from_jax(state.disc, jstate.disc_params)
+    elif isinstance(state.disc, CNNDisc):
+        cnn_disc_from_jax(state.disc, jstate.disc_params)
     else:
         disc_from_jax(state.disc, jstate.disc_params)
     _load_adam_tree(state.disc_opt, _any_disc_leaves(state.disc),
@@ -361,10 +387,11 @@ def adv_irl_state_to_numpy(state: AdvIRLState) -> Dict[str, Any]:
     variables, `disc_opt` {"count", "mu", "nu"} with moment trees shaped
     like the params, the inner state as `sac_state_to_numpy`, the expert
     buffer as `replay_to_numpy`, and `rew_stats`."""
-    rnn = isinstance(state.disc, RNNDisc)
+    dump = (rnn_disc_to_numpy if isinstance(state.disc, RNNDisc)
+            else cnn_disc_to_numpy if isinstance(state.disc, CNNDisc)
+            else disc_to_numpy)
     return {
-        "disc_params": (rnn_disc_to_numpy if rnn else disc_to_numpy)(
-            state.disc),
+        "disc_params": dump(state.disc),
         "disc_opt": _dump_adam_tree(state.disc_opt,
                                     _any_disc_leaves(state.disc)),
         "policy": sac_state_to_numpy(state.policy),
@@ -616,3 +643,163 @@ def hindsight_to_numpy(state: HindsightReplayState) -> Dict[str, Any]:
     for name in ("ep_len", "cur_slot", "cur_t", "completed"):
         out[name] = getattr(state, name).cpu().numpy()
     return out
+
+
+# --- the visual path: encoder, decoder, SAC-AE, CNNDisc ---------------------
+def _encoder_leaves(enc: PixelEncoder) -> List[_Leaf]:
+    out = []
+    for i in range(enc.num_layers):
+        conv = getattr(enc, f"conv{i}")
+        out += [(conv.weight, ("params", f"conv{i}", "kernel"), "conv"),
+                (conv.bias, ("params", f"conv{i}", "bias"), False)]
+    return out + [(enc.fc.weight, ("params", "fc", "kernel"), True),
+                  (enc.fc.bias, ("params", "fc", "bias"), False),
+                  (enc.ln.weight, ("params", "ln", "scale"), False),
+                  (enc.ln.bias, ("params", "ln", "bias"), False)]
+
+
+def _decoder_leaves(dec: PixelDecoder) -> List[_Leaf]:
+    out = [(dec.fc.weight, ("params", "fc", "kernel"), True),
+           (dec.fc.bias, ("params", "fc", "bias"), False)]
+    names = [f"deconv{i}" for i in range(dec.num_layers - 1)]
+    for name in names + ["deconv_out"]:
+        d = getattr(dec, name)
+        out += [(d.weight, ("params", name, "kernel"), "deconv"),
+                (d.bias, ("params", name, "bias"), False)]
+    return out
+
+
+def encoder_from_jax(enc: PixelEncoder, variables) -> None:
+    """A flax PixelEncoder's variables ({"params"}) into `enc`, in place."""
+    _load_leaves(_encoder_leaves(enc), variables)
+
+
+def encoder_to_numpy(enc: PixelEncoder) -> Dict[str, Any]:
+    return _dump_leaves(_encoder_leaves(enc))
+
+
+def decoder_from_jax(dec: PixelDecoder, variables) -> None:
+    """A flax PixelDecoder's variables into `dec`, in place (each
+    ConvTranspose kernel transposed and flipped)."""
+    _load_leaves(_decoder_leaves(dec), variables)
+
+
+def decoder_to_numpy(dec: PixelDecoder) -> Dict[str, Any]:
+    return _dump_leaves(_decoder_leaves(dec))
+
+
+def _tuple_leaves(*parts: List[_Leaf]) -> List[_Leaf]:
+    """The leaves of an optimizer over a tuple of trees, each path led by
+    its tree's index."""
+    return [(t, (i,) + path, tr) for i, leaves in enumerate(parts)
+            for t, path, tr in leaves]
+
+
+def _sac_ae_parts(state: SACAEState) -> Dict[str, List[_Leaf]]:
+    """Each params field of the JAX SACAEState -> its leaves."""
+    return {
+        "encoder_params": _encoder_leaves(state.encoder),
+        "decoder_params": _decoder_leaves(state.decoder),
+        "policy_params": _module_leaves(state.policy),
+        "qf1_params": _module_leaves(state.qf1),
+        "qf2_params": _module_leaves(state.qf2),
+        "target_encoder_params": _encoder_leaves(state.target_encoder),
+        "target_qf1_params": _module_leaves(state.target_qf1),
+        "target_qf2_params": _module_leaves(state.target_qf2),
+    }
+
+
+def _sac_ae_opts(state: SACAEState) -> Dict[str, Tuple[Adam, List[_Leaf]]]:
+    p = _sac_ae_parts(state)
+    return {
+        "qf_opt": (state.qf_opt, _tuple_leaves(
+            p["encoder_params"], p["qf1_params"], p["qf2_params"])),
+        "policy_opt": (state.policy_opt, p["policy_params"]),
+        "alpha_opt": (state.alpha_opt, [(state.log_alpha, (), False)]),
+        "encdec_opt": (state.encdec_opt, _tuple_leaves(
+            p["encoder_params"], p["decoder_params"])),
+        "cpc_opt": (state.cpc_opt, _tuple_leaves(
+            p["encoder_params"], [(state.cpc_W, (), False)])),
+    }
+
+
+def sac_ae_state_from_jax(algo: SACAE, jstate) -> SACAEState:
+    """A SACAEState on `algo`'s device holding the JAX SACAEState's
+    values: every params tree, W, log alpha, the five Adams' moments and
+    counts, and the step."""
+    state = algo.init(0)
+    for field, leaves in _sac_ae_parts(state).items():
+        _load_leaves(leaves, getattr(jstate, field))
+    with torch.no_grad():
+        state.cpc_W.copy_(_from_flax(jstate.cpc_W, state.cpc_W, False))
+        state.log_alpha.copy_(_from_flax(jstate.log_alpha, state.log_alpha,
+                                         False))
+    for field, (opt, leaves) in _sac_ae_opts(state).items():
+        _load_adam_tree(opt, leaves, getattr(jstate, field)[0])
+    state.step = int(np.asarray(jstate.step))
+    return state
+
+
+def _dump_tuple(leaves: List[_Leaf], n: int):
+    """`_dump_leaves` of tuple leaves, as the tuple of trees (a part whose
+    only leaf has the empty path, as W, is that array)."""
+    tree = _dump_leaves([(t, path, tr) for t, path, tr in leaves
+                         if len(path) > 1])
+    out = [tree.get(i) for i in range(n)]
+    for t, path, tr in leaves:
+        if len(path) == 1:
+            out[path[0]] = _to_flax(t, tr)
+    return tuple(out)
+
+
+def sac_ae_state_to_numpy(state: SACAEState) -> Dict[str, Any]:
+    """The port's SACAEState in the JAX layouts: flax variables per
+    params field, W, log alpha, per optimizer {"count", "mu", "nu"} with
+    moments shaped as the optimizer's params (a tuple of trees for
+    qf_opt, encdec_opt and cpc_opt), and the step."""
+    out: Dict[str, Any] = {field: _dump_leaves(leaves) for field, leaves
+                           in _sac_ae_parts(state).items()}
+    out["cpc_W"] = _to_flax(state.cpc_W, False)
+    out["log_alpha"] = _to_flax(state.log_alpha, False)
+    tuple_sizes = {"qf_opt": 3, "encdec_opt": 2, "cpc_opt": 2}
+    for field, (opt, leaves) in _sac_ae_opts(state).items():
+        n = tuple_sizes.get(field)
+        if n:
+            moments = {name: _dump_tuple(
+                [(m, path, tr) for (_, path, tr), m in zip(
+                    leaves, _moments_of(opt, leaves, getattr(opt, name)))],
+                n) for name in ("mu", "nu")}
+            out[field] = {"count": opt.count, **moments}
+        elif field == "alpha_opt":
+            out[field] = {"count": opt.count,
+                          "mu": _to_flax(opt.mu[0], False),
+                          "nu": _to_flax(opt.nu[0], False)}
+        else:
+            out[field] = _dump_adam_tree(opt, leaves)
+    out["step"] = state.step
+    return out
+
+
+def _cnn_disc_leaves(disc: CNNDisc) -> List[_Leaf]:
+    out = []
+    for i in range(disc.num_layer_blocks):
+        conv = getattr(disc, f"conv_{i}")
+        out += [(conv.weight, (f"conv_{i}", "kernel"), "conv"),
+                (conv.bias, (f"conv_{i}", "bias"), False)]
+    for i in range(disc.num_layer_blocks):
+        dense, ln = getattr(disc, f"dense_{i}"), getattr(disc, f"ln_{i}")
+        out += [(dense.weight, (f"dense_{i}", "kernel"), True),
+                (dense.bias, (f"dense_{i}", "bias"), False),
+                (ln.weight, (f"ln_{i}", "scale"), False),
+                (ln.bias, (f"ln_{i}", "bias"), False)]
+    return out + [(disc.logit.weight, ("logit", "kernel"), True),
+                  (disc.logit.bias, ("logit", "bias"), False)]
+
+
+def cnn_disc_from_jax(disc: CNNDisc, variables) -> None:
+    """A flax CNNDisc's variables ({"params"}) into `disc`, in place."""
+    _load_leaves(_cnn_disc_leaves(disc), variables["params"])
+
+
+def cnn_disc_to_numpy(disc: CNNDisc) -> Dict[str, Any]:
+    return {"params": _dump_leaves(_cnn_disc_leaves(disc))}

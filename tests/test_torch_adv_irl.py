@@ -564,16 +564,20 @@ def test_gail_pendulum_trains_and_resumes_bit_for_bit(tmp_path,
 
 
 def test_unported_parts_raise_naming_their_item(tmp_path, monkeypatch):
+    """The host envs (item 2.8) raise; the visual parts (item 2.7) are
+    ported: the cnn discriminator refuses vector observations, and
+    `feature_fn` takes the width of its features."""
     monkeypatch.chdir(ROOT)
-    for extra, item in (({"disc_type": "cnn"}, "2.7"),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            pexp.run_adv_irl(_gail_pendulum(tmp_path / "x", **extra),
-                             device="cpu")
+    with pytest.raises(ValueError, match="image observations"):
+        pexp.run_adv_irl(_gail_pendulum(tmp_path / "x", disc_type="cnn"),
+                         device="cpu")
     host = _gail_pendulum(tmp_path / "x")
     host["env_specs"]["env_name"] = "lunarlandercont"
     with pytest.raises(NotImplementedError, match="item 2.8"):
         pexp.run_adv_irl(host, device="cpu")
-    jalgo, _, _ = _jax_setup()
-    with pytest.raises(NotImplementedError, match="item 2.7"):
-        AdvIRL(OBS, ACT, jalgo.policy_trainer, None,
-               feature_fn=lambda s, o: o)
+    sac = SAC(OBS, ACT, net_size=NET, num_hidden_layers=2, device="cpu")
+    with pytest.raises(ValueError, match="feature_dim"):
+        AdvIRL(OBS, ACT, sac, None, feature_fn=lambda s, o: o)
+    algo = AdvIRL(OBS, ACT, sac, None, feature_fn=lambda s, o: o,
+                  feature_dim=5)
+    assert algo.disc_input_dim == 5 + ACT

@@ -458,3 +458,32 @@ def test_engine_with_kernel_matches_plain_solve(name, cuda):
         scale = max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g / scale, w / scale, rtol=2e-4,
                                    atol=5e-3)
+
+
+@pytest.mark.gpu
+def test_bf16_pixel_encoder_on_the_card(cuda):
+    """The visual path's encoder at the spec's width (4 convs of 32, 64 px,
+    batch 128) with its default bf16 convs on the card (cuDNN) against the
+    same weights in float32 on the card and on the CPU: features within
+    atol 3e-2, the bf16 pin of tests/test_torch_visual.py."""
+    from ilswiss_tpu_torch.models.encoders import PixelEncoder
+
+    enc = PixelEncoder(64, 3, torch.Generator().manual_seed(0))
+    x = torch.rand((128, 64, 64, 3), generator=torch.Generator()
+                   .manual_seed(1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # float32 convs, not TF32
+    try:
+        with torch.no_grad():
+            enc.compute_dtype = torch.float32
+            want = enc(x)
+            enc = enc.to(cuda)
+            f32 = enc(x.to(cuda)).cpu()
+            enc.compute_dtype = torch.bfloat16
+            bf16 = enc(x.to(cuda)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.testing.assert_close(f32, want, rtol=1e-4, atol=1e-4)
+    gap = float((bf16 - f32).abs().max())
+    assert gap <= 3e-2, gap
+    assert bool(torch.isfinite(bf16).all())

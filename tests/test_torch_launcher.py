@@ -202,24 +202,32 @@ def test_routing_raises_naming_the_roadmap_item(tmp_path):
         run(_variant(tmp_path, env_specs={"env_name": "hopper",
                                           "force_host": True}),
             device="cpu")
-    for env, item in (("pendulum_pixels", "2.7"),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            run(_variant(tmp_path, env), device="cpu")
-    # an unported device env raises through every trainer's launcher
-    with pytest.raises(NotImplementedError, match="item 2.7"):
-        pexp.EXPERIMENTS["dqn"](_variant(tmp_path, "pendulum_pixels"),
-                                device="cpu")
+    # the DMC pixel envs and gen_expert's DMC branch render on the host
+    for name in ("sac_ae", "sac_rad", "sac_curl", "gen_expert"):
+        with pytest.raises(NotImplementedError, match="item 2.8"):
+            pexp.EXPERIMENTS[name](_variant(tmp_path, "dmc"), device="cpu")
     with pytest.raises(ValueError, match="unknown env"):
         run(_variant(tmp_path, "no_such_env"), device="cpu")
     # every JAX experiment name is known; the unported ones raise
     assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
-    with pytest.raises(NotImplementedError, match="item 2.7"):
-        pexp.EXPERIMENTS["sac_ae"](_variant(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="item 2.10"):
         pexp.EXPERIMENTS["render_policy"](_variant(tmp_path), device="cpu")
     if not torch.cuda.is_available():      # the default device is the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(_variant(tmp_path))
+
+
+def test_run_sac_ae_refuses_load_params(tmp_path):
+    """The JAX device branch of `run_sac_ae` (experiments.py:1409-1516)
+    never reads `load_params`, so a resume there silently starts afresh
+    and overwrites the run's snapshots (ROADMAP.md section 3); the port
+    raises ValueError before any work, for each of the three names."""
+    for name in ("sac_ae", "sac_rad", "sac_curl"):
+        v = _variant(tmp_path, "pendulum_pixels",
+                     load_params=str(tmp_path / "run"))
+        with pytest.raises(ValueError, match="has no resume"):
+            pexp.EXPERIMENTS[name](v, device="cpu")
+    assert not (tmp_path / "run").exists()
 
 
 # --- run_sac end to end on pendulum -----------------------------------------

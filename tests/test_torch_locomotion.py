@@ -45,7 +45,7 @@ WIDTHS = {"hopper": 11, "ant": 105, "ant_trunc_obs": 27, "humanoid": 348,
 # the registry's other envs, held against JAX in test_torch_envs_classic.py
 # (pendulum, mountain), test_torch_cartpole_nstep.py (cartpole) and
 # test_torch_her_gcsl.py (the goal env reach2d)
-CLASSIC = {"pendulum", "mountain", "cartpole", "reach2d"}
+CLASSIC = {"pendulum", "mountain", "cartpole", "reach2d", "pendulum_pixels"}
 
 
 def _assert_scaled_close(got, want, what=""):
