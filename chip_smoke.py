@@ -166,11 +166,11 @@ exits non-zero on any failure; no phase catches its own error.
      share of masked steps in the policy batches;
  15. MBPO through the launcher: exp_specs/mbpo/mbpo_hopper.yaml copied
      under build/chip_smoke_mbpo/ with only num_epochs (301 -> 1) and
-     num_steps_per_epoch (1000 -> 496, two segments of 31 iterations) cut,
+     num_steps_per_epoch (1000 -> 248, one segment of 31 iterations) cut,
      through `EXPERIMENTS["mbpo"]`: SAC 256 x 2 (160 steps an iteration
      on mixed batches, real_ratio 0.05), the 7-net ensemble of 200 x 4,
      rollouts of 100,000 branches, a 1M-row real and a 6,000,000-row
-     model ring.  Launch counts exact (K1 1687; K2 = K3 = K4 = 0), every
+     model ring.  Launch counts exact (K1 1656; K2 = K3 = K4 = 0), every
      value finite, the model ring's size the sum of the rows the rollouts
      wrote, the 'last' snapshot restored bit for bit, K1 at B = 8 on the
      end states against its plain version; an ensemble minibatch step and
@@ -195,18 +195,18 @@ exits non-zero on any failure; no phase catches its own error.
      version; a BC step's and a DAgger iteration's wall ms, device
      operations and device ms;
  17. goal-conditioned learning on reach2d: her_sac_reach2d.yaml,
-     gcsl_reach2d.yaml and gcsl_reach_dis.yaml, 1 epoch each, under
-     build/chip_smoke_goal/: no kernel launch, every value finite,
-     TotalEnvSteps 16 x 350, a batch sampled from each run's hindsight
+     gcsl_reach2d.yaml and gcsl_reach_dis.yaml, 1 epoch of 2000 steps
+     each, under build/chip_smoke_goal/: no kernel launch, every value
+     finite, TotalEnvSteps 16 x 225, a batch sampled from each run's hindsight
      ring equal to the same draws on a CPU copy of it, exactly; an
      iteration's and an inner step's wall ms, device operations and
      device ms;
  18. the visual path: exp_specs/sac_ae/, sac_rad/ and sac_curl/
      *_pendulum_pixels.yaml through `EXPERIMENTS` cut in length only (1
-     epoch of 1600 steps after the spec's 1000-step warmup; 16 envs of 64
+     epoch of 800 steps after the spec's 1000-step warmup; 16 envs of 64
      px, K = 8 at batch 128, the 100,000-row ring, bf16 convs, crop 56 for
      RAD and CURL), under build/chip_smoke_visual/ (each run's logs deleted
-     once read): no kernel launch, every value finite, TotalEnvSteps 2592,
+     once read): no kernel launch, every value finite, TotalEnvSteps 1792,
      one SAC-AE step on the card against a CPU copy (16 rows of a batch,
      float32 convs, rtol 2e-4, atol 1e-4); an even and an odd SAC-AE
      step's and an iteration's wall ms, device operations and device ms,
@@ -215,7 +215,24 @@ exits non-zero on any failure; no phase catches its own error.
      feature gap (the disk's free space and the host bridges' packages
      printed first); then GAIL with the cnn discriminator on
      pendulum_pixels through `OffPolicyLoop` (2 envs, batch 16, an 8-step
-     epoch): finite metrics, no launch.
+     epoch): finite metrics, no launch;
+ 19. the host loops' device half (ROADMAP.md item 2.8), `host_phase`:
+     the GPU machine it is written for has no MuJoCo, gymnasium or Box2D
+     (printed, with the native engine's ImportError), so the gymnasium env
+     that the launcher builds is replaced by
+     `ilswiss_tpu_torch.testing.DeviceEnvAsHost` on pendulum (reach2d for
+     HER).  exp_specs/sac/sac_hopper_native.yaml
+     (force_host) at its widths (16 envs, 256 x 2, batch 512, a 1M ring,
+     1000 eager steps a train call) cut to 2 epochs of 1000 steps after a
+     1000-step warmup: straight, 1 epoch plus a full resume (TotalEnvSteps
+     1984 / 2976 both), and 1 epoch with the collection not overlapped;
+     gail_pendulum.yaml and ppo_pendulum.yaml with force_host, 1 epoch;
+     `HostHERLoop` and `HostMBPOLoop` on the her_sac_reach2d.yaml and
+     mbpo_pendulum.yaml constants, one segment each.  No kernel launch on
+     any run, every value finite; a segment's collection and a train
+     call's wall ms, a 20-step call's device operations and device ms,
+     TrainTime overlapped and serial, and a 4-step train call on the card
+     against a CPU copy at phase 18's pins.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -1415,6 +1432,9 @@ class ReplayedDraws:
     def model(self, shape):
         return self._next("model")
 
+    def train(self, shape):
+        return self._next("eps_next"), self._next("eps_new")
+
 
 def compare_trees(what: str, got, want, rtol: float, atol: float) -> float:
     """`got` against `want` (trees as `to_tree` makes them) leaf by leaf
@@ -1595,8 +1615,9 @@ def rnn_gail_phase(card: str, counters: dict, k1_check) -> dict:
 
 # Phase 15: MBPO through the launcher, cut in length only (see mbpo_phase)
 MBPO_SPEC = "exp_specs/mbpo/mbpo_hopper.yaml"
-MBPO_CUT = {"num_epochs": 1, "num_steps_per_epoch": 496}
-MBPO_K1 = 1687           # 625 warmup + 2 segments x 31 + 1000 evaluation
+# one segment of the spec's epoch of four
+MBPO_CUT = {"num_epochs": 1, "num_steps_per_epoch": 248}
+MBPO_K1 = 1656           # 625 warmup + 1 segment x 31 + 1000 evaluation
 MBPO_CHECK_R = 1024      # branches of the card-vs-CPU rollout
 MBPO_METRICS = ["qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
                 "alpha", "log_pi_mean", "bnn_epochs", "bnn_train_loss",
@@ -1652,14 +1673,14 @@ def kept_mbpo():
 def mbpo_phase(card: str, counters: dict, k1_check) -> dict:
     """Phase 15: a copy of MBPO_SPEC under build/chip_smoke_mbpo/ with only
     MBPO_CUT changed (num_epochs 301 -> 1, num_steps_per_epoch 1000 ->
-    496: two segments of 31 iterations), through `build_variants` and
+    248: one segment of 31 iterations), through `build_variants` and
     `EXPERIMENTS["mbpo"]` on the card, at the spec's widths: 8 envs, SAC
     256 x 2 at batch 256 with 160 steps an iteration, the 7-net ensemble
     (5 elites) of 200 x 4, rollouts of 100,000 branches, real_ratio 0.05,
     a 1M-row real ring and a 6,000,000-row model ring, the 5000-step
     warmup and the 1000-step evaluation.  Fails unless K1 launched once
     per control step (MBPO_K1; K2, K3 and K4 never), every progress.csv
-    value is finite with TotalEnvSteps 5496, the model ring holds the sum
+    value is finite with TotalEnvSteps 5248, the model ring holds the sum
     of the rows the rollouts wrote, the run's 'last' snapshot restores
     into a fresh runner bit for bit, K1 agrees with its plain version on
     the end states at B = 8 (`k1_check`), and one ensemble minibatch step
@@ -1700,7 +1721,7 @@ def mbpo_phase(card: str, counters: dict, k1_check) -> dict:
             + segments * seg_iters + rl["max_path_length"],
             "planar_forward": 0, "fused_sac_chain": 0,
             "fused_policy_forward": 0, "pgs_solve": 0}
-    if want["planar_control_step"] != MBPO_K1 or segments != 2:
+    if want["planar_control_step"] != MBPO_K1 or segments != 1:
         fail(f"MBPO: the spec's schedule is not phase 15's: {segments} "
              f"segments of {seg_iters} iterations, {want}")
     torch.cuda.reset_peak_memory_stats()
@@ -2184,6 +2205,8 @@ def imitation_phase(card: str, counters: dict, k1_check) -> dict:
 
 
 # Phase 17: goal-conditioned learning on reach2d, 1 epoch of each spec
+# 2000 of the specs' 4000 steps an epoch
+GOAL_STEPS = 2000
 GOAL_SPECS = {"her_sac": ("her", "exp_specs/her/her_sac_reach2d.yaml"),
               "gcsl": ("gcsl", "exp_specs/gcsl/gcsl_reach2d.yaml"),
               "gcsl_dis": ("gcsl", "exp_specs/gcsl/gcsl_reach_dis.yaml")}
@@ -2192,13 +2215,13 @@ GOAL_SPECS = {"her_sac": ("her", "exp_specs/her/her_sac_reach2d.yaml"),
 def goal_phase(card: str, counters: dict) -> dict:
     """Phase 17: her_sac_reach2d.yaml, gcsl_reach2d.yaml and
     gcsl_reach_dis.yaml through `EXPERIMENTS["her"]` / `["gcsl"]` on the
-    card, 1 epoch each (the specs' 20, cut), logs under
-    build/chip_smoke_goal/: 16 envs, 512 episode slots, batch 128, K = 8,
-    a warmup of 2 x 50 iterations and 250 training iterations.  reach2d
-    is analytic: no kernel may launch.  Fails unless every progress.csv
-    value is finite with TotalEnvSteps 16 x 350, and a batch sampled from
-    the run's hindsight ring on the card holds the same rows as the same
-    draws give on a CPU copy of the ring, exactly.  Times an HER iteration
+    card, 1 epoch each (the specs' 20, cut) of GOAL_STEPS steps, logs
+    under build/chip_smoke_goal/: 16 envs, 512 episode slots, batch 128,
+    K = 8, a warmup of 2 x 50 iterations and 125 training iterations.
+    reach2d is analytic: no kernel may launch.  Fails unless every
+    progress.csv value is finite with TotalEnvSteps 16 x 225, and a batch
+    sampled from the run's hindsight ring on the card holds the same rows
+    as the same draws give on a CPU copy of the ring, exactly.  Times an HER iteration
     (one env step, 8 SAC steps), an HER SAC step and a GCSL step (wall,
     device operations and device ms)."""
     import shutil
@@ -2219,6 +2242,7 @@ def goal_phase(card: str, counters: dict) -> dict:
     result = {"launches": {}, "seconds": {}, "rows": {}}
     for what, (name, path) in GOAL_SPECS.items():
         variant = spec_variant(path)
+        variant["rl_alg_params"]["num_steps_per_epoch"] = GOAL_STEPS
         with kept((HERLoop, "init")) as seen:
             runner, launches, seconds = run_spec(
                 name, variant, out / what, counters, 1)
@@ -2305,7 +2329,8 @@ VISUAL_SPECS = {
     "sac_rad": ("sac_rad", "exp_specs/sac_rad/sac_rad_pendulum_pixels.yaml"),
     "sac_curl": ("sac_curl",
                  "exp_specs/sac_curl/sac_curl_pendulum_pixels.yaml")}
-VISUAL_CUT = {"num_epochs": 1, "num_steps_per_epoch": 1600}
+# 800 of the specs' 4000 steps an epoch
+VISUAL_CUT = {"num_epochs": 1, "num_steps_per_epoch": 800}
 VISUAL_METRICS = {
     "sac_ae": ["qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
                "rec_loss", "latent_loss"],
@@ -2347,14 +2372,14 @@ def timed_snapshots():
 def visual_phase(card: str, counters: dict) -> dict:
     """Phase 18: the visual path.  sac_ae_pendulum_pixels.yaml,
     sac_rad_pendulum_pixels.yaml and sac_curl_pendulum_pixels.yaml through
-    `EXPERIMENTS[...]` on the card, cut in length only (1 epoch of 1600
+    `EXPERIMENTS[...]` on the card, cut in length only (1 epoch of 800
     steps after the spec's 1000-step warmup), logs under
     build/chip_smoke_visual/: 16 envs of 64 px frames, K = 8 SAC-AE steps
     an iteration at batch 128, the spec's 100,000-row float32 ring, a 4 x
     32 conv encoder of 50 features in bf16, a 256 x 2 SAC, crop 56 for RAD
     and CURL.  The path is analytic and eager: no kernel may launch.
     Fails unless every progress.csv value is finite, TotalEnvSteps is 62
-    x 16 + 1600 and the state took 800 steps, and one SAC-AE step (both
+    x 16 + 800 and the state took 400 steps, and one SAC-AE step (both
     phases of an even step, on 16 rows of a batch) on the card agrees with
     the same step on a CPU copy of the end state, float32 convs on both,
     at rtol 2e-4, atol 1e-4.
@@ -2576,6 +2601,391 @@ def visual_phase(card: str, counters: dict) -> dict:
     return result
 
 
+HOST_DIR = "build/chip_smoke_host"
+HOST_STANDIN = "pendulum"
+# sac_hopper_native.yaml at its widths (16 envs, 256 x 2, batch 512, a 1M
+# ring, 1000 steps between train calls, 1000 steps a call), cut in length:
+# 2 epochs of 1000 steps after a 1000-step warmup (the spec's 5000)
+HOST_SAC_CUT = {"num_epochs": 2, "num_steps_per_epoch": 1000,
+                "min_steps_before_training": 1000}
+HOST_GAIL_CUT = {"num_epochs": 1, "num_steps_per_epoch": 1000}
+HOST_PPO_CUT = {"num_epochs": 1, "num_steps_per_epoch": 2048}
+# the card-vs-CPU train call: sac_hopper_native's, cut to 4 SAC steps;
+# the profiled one cut to 20 (torch.profiler takes minutes over a whole
+# call's device operations, some 460 a SAC step)
+HOST_CHECK_STEPS = 4
+HOST_PROFILE_STEPS = 20
+HOST_PACKAGES = ("mujoco", "gymnasium", "gymnasium_robotics", "Box2D",
+                 "dm_control")
+
+
+@contextlib.contextmanager
+def host_standin():
+    """Inside: the gymnasium env that the launcher's `_make_host_env` and
+    `_host_env_sizes` build is `DeviceEnvAsHost` on HOST_STANDIN, whatever
+    env the spec names (the GPU machine has no gymnasium and no MuJoCo), and
+    every `HostOffPolicyLoop` made is kept in the yielded list.  The
+    native engine is tried first as on any machine, and gives way."""
+    from ilswiss_tpu_torch.envs import host_mujoco
+    from ilswiss_tpu_torch.runtime.host_loop import HostOffPolicyLoop
+    from ilswiss_tpu_torch.testing import DeviceEnvAsHost
+
+    loops = []
+    gym_env, init = host_mujoco.GymVectorEnv, HostOffPolicyLoop.__init__
+
+    def standin(env_name, **kwargs):
+        return DeviceEnvAsHost(HOST_STANDIN, **kwargs)
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        loops.append(self)
+
+    host_mujoco.GymVectorEnv, HostOffPolicyLoop.__init__ = standin, keep
+    try:
+        yield loops
+    finally:
+        host_mujoco.GymVectorEnv, HostOffPolicyLoop.__init__ = gym_env, init
+
+
+@contextlib.contextmanager
+def serial_collection():
+    """Inside: every `HostOffPolicyLoop` alternates collection and
+    training (`overlap_collection` off)."""
+    import dataclasses
+
+    from ilswiss_tpu_torch.runtime.host_loop import HostOffPolicyLoop
+
+    init = HostOffPolicyLoop.__init__
+
+    def serial(self, env, algo, config, *args, **kwargs):
+        init(self, env, algo, dataclasses.replace(
+            config, overlap_collection=False), *args, **kwargs)
+
+    HostOffPolicyLoop.__init__ = serial
+    try:
+        yield
+    finally:
+        HostOffPolicyLoop.__init__ = init
+
+
+@contextlib.contextmanager
+def timed_calls():
+    """Inside: the wall ms (host clock, synchronized) of every
+    `HostOffPolicyLoop.ingest_and_train` call, in the yielded list."""
+    import torch
+
+    from ilswiss_tpu_torch.runtime.host_loop import HostOffPolicyLoop
+
+    calls = []
+    train = HostOffPolicyLoop.ingest_and_train
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    HostOffPolicyLoop.ingest_and_train = timed
+    try:
+        yield calls
+    finally:
+        HostOffPolicyLoop.ingest_and_train = train
+
+
+def host_phase(card: str, counters: dict) -> dict:
+    """Phase 19: the host loops' device half on the card.  The GPU machine
+    has none of the host envs' packages (printed first, with the native
+    engine's ImportError), so for this phase's runs only the gymnasium env
+    that the launcher's `_make_host_env` and `_host_env_sizes` build is
+    replaced by `ilswiss_tpu_torch.testing.DeviceEnvAsHost` on pendulum
+    (the port's device env stepped by its plain version on the CPU, behind
+    the host envs' numpy contract): the collector, the acting copy, the
+    segment's transfer, the learner on the card, the evaluation and the
+    snapshots run as on a machine with MuJoCo.  Logs under
+    build/chip_smoke_host/.
+      (a) exp_specs/sac/sac_hopper_native.yaml (force_host) through
+          `EXPERIMENTS["sac"]` at its widths, cut to HOST_SAC_CUT: run A
+          2 epochs; run B 1 epoch, then a full resume; run C 1 epoch
+          with `overlap_collection` off;
+      (b) exp_specs/gail/gail_pendulum.yaml with force_host, 1 epoch of
+          1000 steps (one train call);
+      (c) exp_specs/ppo/ppo_pendulum.yaml with force_host, 1 iteration;
+      (d) `HostHERLoop` on her_sac_reach2d.yaml's constants (the stand-in
+          on reach2d) and `HostMBPOLoop` on mbpo_pendulum.yaml's, a
+          warmup and one segment each.
+    No kernel may launch on any run; every progress.csv value and metric
+    must be finite; TotalEnvSteps after the full resume continues the
+    saved count.  Prints a segment's collection ms, the wall ms of run C's
+    train call (not overlapped), a call cut to HOST_PROFILE_STEPS steps'
+    wall ms, device operations and device ms, TrainTime overlapped and
+    serial,
+    and holds a train call cut to HOST_CHECK_STEPS steps on the card
+    against the same call on a CPU copy (one state, one segment, one set
+    of draws) at phase 18's pins."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from ilswiss_tpu_torch.algorithms.bnn_trainer import BNNTrainerConfig
+    from ilswiss_tpu_torch.algorithms.her import (
+        HER, HERLoopConfig, HostHERLoop,
+    )
+    from ilswiss_tpu_torch.algorithms.mbpo import (
+        MBPO, HostMBPOLoop, MBPOConfig,
+    )
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.data.replay import ReplayState
+    from ilswiss_tpu_torch.envs.native_mujoco import NativeMjVectorEnv
+    from ilswiss_tpu_torch.envs.terminals import get_terminal_func
+    from ilswiss_tpu_torch.runtime.checkpoint import restore_into, to_tree
+    from ilswiss_tpu_torch.runtime.host_loop import (
+        HostOffPolicyLoop, HostRunnerState, collector_noise,
+    )
+    from ilswiss_tpu_torch.runtime.loop import Noise
+    from ilswiss_tpu_torch.testing import DeviceEnvAsHost
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in HOST_PACKAGES}
+    print(f"host: packages importable here: {json.dumps(found)}")
+    try:
+        NativeMjVectorEnv("hopper", 1).close()
+        native = "built and ran"
+    except ImportError as e:
+        native = f"ImportError: {e}"
+    print(f"host: NativeMjVectorEnv('hopper'): {native}")
+    if not found["mujoco"] and not native.startswith("ImportError"):
+        fail("host: the native engine did not raise its ImportError")
+
+    out = ROOT / HOST_DIR
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    result = {"launches": {}}
+    runs = []
+
+    def zero(what, launches):
+        check_launches(f"host {what}", (("(its run)", launches,
+                                        NO_LAUNCHES),))
+        result["launches"][f"host_{what}"] = launches
+
+    # (a) SAC: straight, resumed, serial
+    variant, full = cut_spec("exp_specs/sac/sac_hopper_native.yaml", out,
+                             HOST_SAC_CUT)
+    with host_standin() as loops:
+        runner, launches, sec_a = run_spec("sac", variant, out / "a",
+                                           counters, None)
+        zero("sac_a", launches)
+        loop = loops[-1]
+        _, launches, sec_b1 = run_spec("sac", variant, out / "b", counters,
+                                       1)
+        zero("sac_b", launches)
+        _, launches, sec_b2 = run_spec("sac", variant, out / "b", counters,
+                                       None, load_params=str(out / "b"))
+        zero("sac_b_resume", launches)
+        with serial_collection(), timed_calls() as calls_ms:
+            _, launches, sec_c = run_spec("sac", variant, out / "c",
+                                          counters, 1)
+        zero("sac_c_serial", launches)
+    n, rl = loop.env.num_envs, variant["rl_alg_params"]
+    seg_steps = n * max(1, rl["num_steps_between_train_calls"] // n) * max(
+        1, rl["num_steps_per_epoch"] // rl["num_steps_between_train_calls"])
+    warm = n * max(1, rl["min_steps_before_training"] // n)
+    want = [warm + seg_steps, warm + 2 * seg_steps]
+    need = ["trainer/qf1_loss", "trainer/alpha", "Time/sample",
+            "Time/train", "TotalEnvSteps", "TrainTime"] + EVAL_COLUMNS[:5]
+    rows = {}
+    for name in ("a", "b", "c"):
+        rs = progress_rows(out / name)
+        if not rs or not set(need) <= set(rs[0]) or not all(
+                math.isfinite(float(v)) for r in rs for v in r.values()):
+            fail(f"host sac run {name}: progress.csv {rs}")
+        rows[name] = [{k: float(v) for k, v in r.items()} for r in rs]
+    steps = {k: [r["TotalEnvSteps"] for r in rs] for k, rs in rows.items()}
+    if steps["a"] != want or steps["b"] != want or steps["c"] != want[:1]:
+        fail(f"host sac: TotalEnvSteps {steps}, expected {want} (A and B "
+             f"after its full resume) and {want[:1]} (C)")
+    if "native engine unavailable" not in (out / "a" / "debug.log"
+                                           ).read_text() and not found[
+                                               "mujoco"]:
+        fail("host sac: the launcher did not log the native engine's "
+             "fallback")
+    train_overlap = [r["TrainTime"] for r in rows["a"]]
+    train_serial = rows["c"][0]["TrainTime"]
+
+    # costs on run A's end state: a segment's collection, one train call
+    algo = loop.algo
+    t0 = time.perf_counter()
+    seg = loop._collect_segment(
+        loop.config.steps_between_train_calls,
+        collector_noise(runner.seed, runner.total_env_steps),
+        loop.acting_snapshot(runner.algo_state))
+    collect_ms = 1e3 * (time.perf_counter() - t0)
+    call_ms = calls_ms[-1]
+    short = HostOffPolicyLoop(loop.env, loop.algo, dataclasses.replace(
+        loop.config, train_steps_per_call=HOST_PROFILE_STEPS))
+    call = step_costs(lambda: short.ingest_and_train(runner, seg), 1, 0, 1)
+
+    # one train call on the card against the same call on a CPU copy
+    cfg = dataclasses.replace(loop.config,
+                              train_steps_per_call=HOST_CHECK_STEPS)
+    draws, noise = [], Noise(79, "cpu")
+    bs = cfg.batch_size
+    for _ in range(HOST_CHECK_STEPS):
+        draws.append(("replay", noise.replay(bs)))
+        e_next, e_new = noise.train((bs, algo.action_size))
+        draws += [("eps_next", e_next), ("eps_new", e_new)]
+    cpu_algo = SAC(algo.obs_size, algo.action_size, algo.config,
+                   net_size=algo.hidden[0],
+                   num_hidden_layers=len(algo.hidden), device="cpu")
+    r = runner.replay
+    copies = (("card", algo, r, runner.algo_state),
+              ("cpu", cpu_algo, ReplayState(
+                  data={k: v.cpu() for k, v in r.data.items()},
+                  ep_id=r.ep_id.cpu(), ptr=r.ptr, size=r.size,
+                  env_ep=r.env_ep.cpu()),
+               restore_into(cpu_algo.init(0), to_tree(runner.algo_state))))
+    states = {}
+    for where, a, ring, state in copies:
+        st = HostRunnerState(
+            noise=ReplayedDraws(draws, a.device), replay=ring,
+            algo_state=state, total_env_steps=0, seed=0)
+        states[where] = HostOffPolicyLoop(loop.env, a, cfg).ingest_and_train(
+            st, seg)[0]
+    err = compare_trees(
+        "host train call",
+        *(to_tree({"algo_state": states[w].algo_state,
+                   "replay": states[w].replay}) for w in ("card", "cpu")),
+        **VISUAL_PIN)
+    print(f"host sac (sac_hopper_native.yaml, {n} envs of the stand-in "
+          f"{HOST_STANDIN}, K = {loop.config.train_steps_per_call} at batch "
+          f"{bs}, a {loop.config.replay_capacity}-row ring): runs "
+          f"{sec_a:.1f} s (A, 2 epochs), {sec_b1:.1f} + {sec_b2:.1f} s (B, "
+          f"1 epoch + a full resume), {sec_c:.1f} s (C, serial, 1 epoch); "
+          f"TotalEnvSteps A {steps['a']}, B {steps['b']}; TrainTime a "
+          f"{seg_steps}-step epoch overlapped {train_overlap} s, serial "
+          f"{train_serial:.3f} s; a segment's collection {collect_ms:.1f} "
+          f"ms; run C's train call ({loop.config.train_steps_per_call} "
+          f"steps) {call_ms:.1f} ms of wall time; a call cut to "
+          f"{HOST_PROFILE_STEPS} steps {call[0]:.1f} ms, {call[1]:.0f} "
+          f"device operations, {call[2]:.2f} ms of device time; a "
+          f"{HOST_CHECK_STEPS}-step float32 train call on the card vs the "
+          f"CPU max |err| {err:.3g}; on {card}")
+    result["sac"] = {
+        "seconds": [sec_a, sec_b1, sec_b2, sec_c],
+        "total_env_steps": steps, "train_time_overlap": train_overlap,
+        "train_time_serial": train_serial, "collect_ms": collect_ms,
+        "train_call_ms": call_ms, "profiled_call": call,
+        "card_vs_cpu": err}
+    runs.append(("sac", sec_a + sec_b1 + sec_b2 + sec_c))
+    del runner, loop, loops, states
+
+    # (b) GAIL and (c) PPO through the launcher
+    for what, name, path, cut, metric in (
+            ("gail", "adv_irl", "exp_specs/gail/gail_pendulum.yaml",
+             HOST_GAIL_CUT, "trainer/disc_rew_mean"),
+            ("ppo", "ppo", "exp_specs/ppo/ppo_pendulum.yaml", HOST_PPO_CUT,
+             "trainer/pg_loss")):
+        constants = {"env_specs": dict(spec_variant(path)["env_specs"],
+                                       force_host=True)}
+        if what == "gail":
+            constants["demo_path"] = str(ROOT / "demos" /
+                                         "pendulum_expert.npz")
+        variant, _ = cut_spec(path, out, cut, constants=constants)
+        with host_standin():
+            runner, launches, sec = run_spec(name, variant, out / what,
+                                             counters, None)
+        zero(what, launches)
+        row = finite_row(f"host {what}", out / what,
+                         [metric, "TotalEnvSteps"] + EVAL_COLUMNS[:5])
+        if row["TotalEnvSteps"] != runner.total_env_steps:
+            fail(f"host {what}: TotalEnvSteps {row['TotalEnvSteps']}")
+        print(f"host {what} ({path}, force_host, the stand-in "
+              f"{HOST_STANDIN}) epoch 0 ({sec:.1f} s for the call): "
+              + ", ".join(f"{k} {row[k]:.6g}" for k in (
+                  metric, "AverageReturn", "TotalEnvSteps", "TrainTime"))
+              + f"; on {card}")
+        result[what] = {"seconds": sec, "row": row}
+        runs.append((what, sec))
+
+    # (d) HER and MBPO, one segment each
+    her_spec = spec_variant("exp_specs/her/her_sac_reach2d.yaml")
+    rl, en = her_spec["rl_alg_params"], her_spec["env_specs"]
+    env = DeviceEnvAsHost("reach2d", en["env_num"], seed=0,
+                          max_episode_steps=rl["max_path_length"])
+    seg_len = max(env.max_episode_steps * env.num_envs,
+                  rl["num_steps_between_train_calls"])
+    sac = SAC(env.observation_size + env.goal_size, env.action_size,
+              SACConfig(discount=her_spec["sac_params"]["discount"]),
+              net_size=her_spec["net_size"],
+              num_hidden_layers=her_spec["num_hidden_layers"])
+    her_loop = HostHERLoop(
+        env, HER(sac), HERLoopConfig(
+            batch_size=rl["batch_size"],
+            num_episode_slots=her_spec["her_params"]["num_episode_slots"]),
+        relabel_type=her_spec["her_params"]["relabel_type"],
+        her_ratio=her_spec["her_params"]["her_ratio"],
+        grad_steps_per_segment=int(
+            seg_len * rl["num_train_steps_per_train_call"]
+            / rl["num_steps_between_train_calls"]),
+        segment_steps=seg_len)
+    mb_spec = spec_variant("exp_specs/mbpo/mbpo_pendulum.yaml")
+    mrl, mp, bp = (mb_spec["rl_alg_params"], mb_spec["mbpo_params"],
+                   mb_spec["bnn_params"])
+    menv = DeviceEnvAsHost("pendulum", mb_spec["env_specs"]["env_num"],
+                           seed=0, max_episode_steps=mrl["max_path_length"])
+    msac = SAC(3, 1, SACConfig(
+        reward_scale=mb_spec["sac_params"]["reward_scale"]),
+        net_size=mb_spec["net_size"],
+        num_hidden_layers=mb_spec["num_hidden_layers"])
+    mbpo = MBPO(None, msac, get_terminal_func("pendulum"), MBPOConfig(
+        model_train_freq=mp["model_train_freq"],
+        rollout_batch_size=mp["rollout_batch_size"],
+        real_ratio=mp["real_ratio"],
+        rollout_schedule=tuple(mp["rollout_schedule"]),
+        batch_size=mrl["batch_size"],
+        replay_capacity=mrl["replay_buffer_size"],
+        min_steps_before_training=mrl["min_steps_before_training"],
+        max_path_length=mrl["max_path_length"]), BNNTrainerConfig(
+        num_nets=bp["num_nets"], num_elites=bp["num_elites"],
+        hidden_sizes=tuple(bp["hidden_sizes"]), batch_size=bp["batch_size"],
+        max_epochs=bp["max_epochs"], holdout_ratio=bp["holdout_ratio"]),
+        obs_size=3, action_size=1, num_envs=menv.num_envs)
+    mbpo_loop = HostMBPOLoop(
+        menv, mbpo, grad_steps_per_env_step=(
+            mrl["num_train_steps_per_train_call"]
+            / mrl["num_steps_between_train_calls"]))
+    for what, lp, epoch in (
+            ("her", her_loop, lambda r: her_loop.train_epoch(r, seg_len)),
+            ("mbpo", mbpo_loop, lambda r: mbpo_loop.train_epoch(
+                r, 0, mp["model_train_freq"]))):
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        r = lp.warmup(lp.init(0))
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r, m = epoch(r)
+        torch.cuda.synchronize()
+        seg_s = time.perf_counter() - t0
+        zero(what, {name: k.launches for name, k in counters.items()})
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad or not m:
+            fail(f"host {what}: metrics {m}")
+        print(f"host {what} segment: warmup {warm_s:.2f} s, one segment "
+              f"{seg_s:.2f} s ({r.total_env_steps} env steps in all); "
+              + ", ".join(f"{k} {v:.6g}" for k, v in sorted(m.items()))
+              + f"; on {card}")
+        result[what] = {"warmup_s": warm_s, "segment_s": seg_s,
+                        "metrics": m}
+        runs.append((what, warm_s + seg_s))
+    shutil.rmtree(out)
+    print(f"host: seconds by run {json.dumps(dict(runs))}")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2628,6 +3038,14 @@ def main() -> int:
     k3 = fused_mlp.fused_gaussian_policy_forward
     k4 = pgs.pgs_solve
     gen = torch.Generator().manual_seed(0)
+
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Print the seconds since the last lap (the phase just ended)."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # ---- 3. K1 vs its plain version --------------------------------------
     import numpy as np
@@ -2737,6 +3155,7 @@ def main() -> int:
           f"4 lanes per env (K4, 240 sweeps in one launch) "
           f"{k4_hopper_rows_ms:.4f} ms")
 
+    lap("3")
     # ---- 4. K3 vs its plain version ----------------------------------------
     from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
 
@@ -2797,6 +3216,7 @@ def main() -> int:
     k3_ms, k3_plain_ms, k3_library_ms, k3_wall_ms = k3_times["hopper", 128]
     k3_bound = k3_times["hopper", "bound"]
 
+    lap("4")
     # ---- 4b. K2 vs its plain version --------------------------------------
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
 
@@ -2980,6 +3400,7 @@ def main() -> int:
           f"batches {k2_eager_ms:.1f} ms ({k2_eager_ms / 128:.3f} ms per "
           f"step)")
 
+    lap("4b")
     # ---- 4c. K4 vs its plain version --------------------------------------
     def k4_case(what, args, time_it, f64_yardstick=False):
         """K4 against its plain version on `args` at 15 sweeps: rtol 2e-4,
@@ -3073,6 +3494,7 @@ def main() -> int:
 
     del args  # the engine's rows of 4096 envs
 
+    lap("4c")
     # ---- 4d. K4 inside the general engine ----------------------------------
     def scaled_check(what, got, want):
         """rtol 2e-4, atol 5e-3 on values divided by max(1, max |plain|)."""
@@ -3116,6 +3538,7 @@ def main() -> int:
               f"forward {engine_ms[name][0]:.3f} ms, one control step "
               f"{engine_ms[name][1]:.1f} ms (wall, by CUDA events)")
 
+    lap("4d")
     # ---- 5. the slice on a small input: card vs CPU -----------------------
     from ilswiss_tpu_torch.envs import make_vec
     from ilswiss_tpu_torch.runtime.loop import (
@@ -3196,6 +3619,7 @@ def main() -> int:
                   f"card vs CPU max |err| {slice_err:.3g} (rtol 2e-4, atol "
                   f"5e-3)")
 
+    lap("5")
     # ---- 6. SAC-Hopper at full width: the eager path, then the main path --
     num_envs = 128
 
@@ -3279,13 +3703,16 @@ def main() -> int:
     drive("hopper", fused=False, train_iters=2)
     hopper_launches = drive("hopper", fused=True, train_iters=10)
 
+    lap("6")
     # ---- 7. SAC-Ant at full width ------------------------------------------
     ant_launches = drive("ant", fused=True, train_iters=10)
 
+    lap("7")
     # ---- 8. SAC-Humanoid at full width, cut in length ----------------------
     humanoid_launches = drive("humanoid", fused=True, train_iters=3,
                               min_steps=1024)
 
+    lap("8")
     # ---- 9. the YAML launcher: sac_hopper_optable.yaml, save and resume ----
     counters = {"planar_control_step": k1s, "planar_forward": k1,
                 "fused_sac_chain": k2, "fused_policy_forward": k3,
@@ -3293,24 +3720,37 @@ def main() -> int:
     launcher = launcher_phase(
         card, counters, (k2, fused_sac.fused_sac_chain_plain),
         k1_step_check, k2_modes)
+    lap("9")
     # ---- 10. adversarial IL: gail_hopper.yaml, save and resume ------------
     gail = gail_phase(card, counters, k1_step_check)
+    lap("10")
     # ---- 11. TD3: td3_hopper.yaml, save and resume -----------------------
     td3 = td3_phase(card, counters, k1_step_check)
+    lap("11")
     # ---- 12. DQN, discrete SAC, DDPG, SAC-V through the launcher ----------
     others = other_trainers_phase(card, counters)
+    lap("12")
     # ---- 13. PPO: ppo_hopper.yaml through the launcher --------------------
     ppo = ppo_phase(card, counters, k1_step_check)
+    lap("13")
     # ---- 14. the rnn discriminator: gail_hopper.yaml, save and resume -----
     gail_rnn = rnn_gail_phase(card, counters, k1_step_check)
+    lap("14")
     # ---- 15. MBPO: mbpo_hopper.yaml through the launcher ------------------
     mbpo = mbpo_phase(card, counters, k1_step_check)
+    lap("15")
     # ---- 16. gen_expert, BC, DAgger and eval_policy on hopper -------------
     imitation = imitation_phase(card, counters, k1_step_check)
+    lap("16")
     # ---- 17. HER and GCSL on reach2d --------------------------------------
     goal = goal_phase(card, counters)
+    lap("17")
     # ---- 18. SAC-AE, RAD, CURL on pendulum_pixels; the cnn discriminator --
     visual = visual_phase(card, counters)
+    lap("18")
+    # ---- 19. the host loops' device half over a stand-in host env --------
+    host = host_phase(card, counters)
+    lap("19")
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -3400,8 +3840,9 @@ def main() -> int:
     # the ant path's; `launches_by_path` adds the launcher's run A, the
     # GAIL launcher's run A, TD3's and DQN's run A, the 1-epoch runs of
     # DDPG, SAC-V and discrete SAC, PPO's run, the rnn GAIL's run A,
-    # MBPO's run, phase 16's four runs, phase 17's three and phase 18's
-    # four (no kernel launches on the visual path)
+    # MBPO's run, phase 16's four runs, phase 17's three, phase 18's
+    # four and phase 19's nine (no kernel launches on the visual path or
+    # on the host loops)
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
              "gail": gail["launches"], "td3": td3["launches"],
@@ -3409,7 +3850,7 @@ def main() -> int:
                 for name in ("ddpg", "sac_v", "dqn", "discrete_sac")},
              "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"],
              "mbpo": mbpo["launches"], **imitation["launches"],
-             **goal["launches"], **visual["launches"]}
+             **goal["launches"], **visual["launches"], **host["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

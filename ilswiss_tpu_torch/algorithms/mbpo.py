@@ -40,6 +40,14 @@ Per segment:
     then per gradient step `replay(n_real)`, `replay(n_model)` and SAC's
     `train` pair.
 The warmup draws `warmup_action` and `reset` per iteration.
+
+`HostMBPOLoop` (JAX mbpo.py:336-453) runs MBPO on a host env
+(runtime/host_loop.py): per segment of `model_train_freq` env steps, the
+ensemble fit and the model rollout as above, then the segment collected
+on the host with a CPU copy of SAC's policy (the collector's draws its
+own, `collector_noise`), ingested into the real ring, and
+`model_train_freq * grad_steps_per_env_step` SAC steps on mixed batches
+(per step `replay(n_real)`, `replay(n_model)`, then `train`).
 """
 
 from __future__ import annotations
@@ -57,6 +65,9 @@ from ilswiss_tpu_torch.data.replay import (
 )
 from ilswiss_tpu_torch.envs.base import EnvState
 from ilswiss_tpu_torch.envs.vector import VectorEnv
+from ilswiss_tpu_torch.runtime.host_loop import (
+    HostLoopConfig, HostOffPolicyLoop, collector_noise, mean_metrics,
+)
 from ilswiss_tpu_torch.runtime.loop import (
     Noise, OffPolicyConfig, OffPolicyLoop,
 )
@@ -84,7 +95,7 @@ class MBPOConfig:
 @dataclass
 class MBPORunnerState:
     noise: Any
-    env_state: EnvState          # batched [num_envs]
+    env_state: EnvState | None   # batched [num_envs]; None on a host env
     replay: ReplayState          # real transitions
     model_replay: ReplayState    # model transitions
     algo_state: Any              # the inner SAC's
@@ -96,19 +107,29 @@ class MBPO:
     """The epoch loop around `policy_trainer` (SAC) and a `BNNTrainer`,
     on the device of `vec_env`."""
 
-    def __init__(self, vec_env: VectorEnv, policy_trainer,
+    def __init__(self, vec_env: VectorEnv | None, policy_trainer,
                  terminal_fn: Callable,
                  config: MBPOConfig = MBPOConfig(),
-                 bnn_config: BNNTrainerConfig = BNNTrainerConfig()):
-        env = vec_env.env
+                 bnn_config: BNNTrainerConfig = BNNTrainerConfig(),
+                 obs_size: int | None = None,
+                 action_size: int | None = None,
+                 num_envs: int | None = None):
+        """`vec_env` is None for a host env (`HostMBPOLoop` collects); the
+        sizes and the env count are then given, and the device is the
+        trainer's."""
         self.vec_env = vec_env
         self.algo = policy_trainer
         self.terminal_fn = terminal_fn
         self.config = config
-        self.device = env.device
-        self.obs_size = env.observation_size
-        self.action_size = env.action_size
-        self.num_envs = vec_env.num_envs
+        if vec_env is not None:
+            env = vec_env.env
+            obs_size, action_size = env.observation_size, env.action_size
+            num_envs = vec_env.num_envs
+        self.discrete = vec_env is not None and vec_env.env.discrete
+        self.device = policy_trainer.device
+        self.obs_size = obs_size
+        self.action_size = action_size
+        self.num_envs = num_envs
         self.bnn = BNNTrainer(self.obs_size, self.action_size, bnn_config,
                               device=self.device)
         self.grad_steps_per_iter = (
@@ -122,23 +143,26 @@ class MBPO:
             config.model_retrain_epochs * max_len * rollouts_per_epoch)
         # the real env's collection (act, step, replay_add) and warmup
         # are the off-policy loop's
-        self.loop = OffPolicyLoop(vec_env, policy_trainer, OffPolicyConfig(
-            batch_size=config.batch_size,
-            replay_capacity=config.replay_capacity,
-            grad_steps_per_iter=self.grad_steps_per_iter,
-            min_steps_before_training=config.min_steps_before_training))
+        self.loop = None if vec_env is None else OffPolicyLoop(
+            vec_env, policy_trainer, OffPolicyConfig(
+                batch_size=config.batch_size,
+                replay_capacity=config.replay_capacity,
+                grad_steps_per_iter=self.grad_steps_per_iter,
+                min_steps_before_training=config.min_steps_before_training))
 
     def init(self, seed: int, noise=None) -> MBPORunnerState:
         """Fresh runner: SAC's state from `seed`, the ensemble's from
         `seed + BNN_SEED_OFFSET`, the env reset and every later draw from
-        `noise` (default `Noise(seed + 1, device)`)."""
+        `noise` (default `Noise(seed + 1, device)`).  Without a vec env
+        the env state is None."""
         noise = Noise(seed + 1, self.device) if noise is None else noise
-        env, n = self.vec_env.env, self.num_envs
+        n = self.num_envs
         ring = dict(obs_size=self.obs_size, action_size=self.action_size,
-                    device=self.device, discrete=env.discrete)
+                    device=self.device, discrete=self.discrete)
         return MBPORunnerState(
             noise=noise,
-            env_state=self.vec_env.reset(noise.reset(env, n)),
+            env_state=(None if self.vec_env is None else self.vec_env.reset(
+                noise.reset(self.vec_env.env, n))),
             replay=replay_init(self.config.replay_capacity,
                                write_batch=n, **ring),
             model_replay=replay_init(
@@ -266,3 +290,89 @@ class MBPO:
         """The inner trainer's `act`."""
         return self.algo.act(algo_state, obs, *draws,
                              deterministic=deterministic)
+
+
+class HostMBPOLoop:
+    """MBPO on a host env: the host off-policy loop's collection, ingest
+    and evaluation around `mbpo`'s ensemble, model rollouts and mixed
+    batches.  The runner is an `MBPORunnerState` without an env state;
+    the run's seed, which seeds the collector's draws, is the loop's."""
+
+    def __init__(self, env, mbpo: MBPO, grad_steps_per_env_step: float = 20.0,
+                 no_terminal: bool = False):
+        self.env = env
+        self.mbpo = mbpo
+        self.host = HostOffPolicyLoop(env, mbpo.algo, HostLoopConfig(
+            min_steps_before_training=mbpo.config.min_steps_before_training,
+            no_terminal=no_terminal))
+        self.grad_steps_per_segment = max(1, int(
+            mbpo.config.model_train_freq * grad_steps_per_env_step))
+        self.seed = 0
+
+    def init(self, seed: int = 0, noise=None) -> MBPORunnerState:
+        self.seed = seed
+        self.host._obs = self.env.reset(seed=seed)
+        return self.mbpo.init(seed, noise)
+
+    def warmup(self, runner: MBPORunnerState) -> MBPORunnerState:
+        """max(1, min_steps_before_training // B) steps of uniform [-1, 1]
+        actions into the real ring."""
+        seg = self.host._collect_segment(
+            self.mbpo.config.min_steps_before_training,
+            collector_noise(self.seed, runner.total_env_steps))
+        self.host._ingest(runner, seg)
+        runner.total_env_steps += int(seg["reward"].size)
+        return runner
+
+    def ingest_and_train(self, runner: MBPORunnerState, segment
+                         ) -> Tuple[MBPORunnerState, Dict[str, torch.Tensor]]:
+        """The segment into the real ring, then the SAC steps on mixed
+        batches; returns the steps' mean metrics (0-d, on the device)."""
+        self.host._ingest(runner, segment)
+        algo, bs, noise = self.mbpo.algo, self.mbpo.config.batch_size, \
+            runner.noise
+        state, steps = runner.algo_state, []
+        for _ in range(self.grad_steps_per_segment):
+            batch = self.mbpo._mixed_batch(runner, noise)
+            state, m = algo.train_step(state, batch,
+                                       *algo.train_noise(noise, bs))
+            steps.append(m)
+        runner.algo_state = state
+        return runner, {k: torch.stack([m[k] for m in steps]).mean()
+                        for k in steps[0]}
+
+    def train_epoch(self, runner: MBPORunnerState, epoch: int,
+                    steps_per_epoch: int, log=None
+                    ) -> Tuple[MBPORunnerState, Dict[str, float]]:
+        """max(1, steps_per_epoch // model_train_freq) segments; returns
+        the SAC metrics' means, the last ensemble fit's stats and
+        `mean_rollout_length`, as floats."""
+        mbpo, cfg = self.mbpo, self.mbpo.config
+        metrics: List[Dict[str, torch.Tensor]] = []
+        bnn_stats: Dict[str, float] = {}
+        for seg in range(max(1, steps_per_epoch // cfg.model_train_freq)):
+            if cfg.real_ratio < 1.0:
+                size = runner.replay.size
+                data = {k: v[:size] for k, v in runner.replay.data.items()}
+                runner.bnn_state, bnn_stats = mbpo.bnn.train(
+                    runner.bnn_state, data, runner.noise, log=log)
+                length = mbpo.rollout_length(epoch)
+                mbpo._rollout_model(runner, length)
+                if log:
+                    log(f"MBPO seg {seg}: rollout_len={length} "
+                        f"model_pool={runner.model_replay.size}")
+            segment = self.host._collect_segment(
+                cfg.model_train_freq,
+                collector_noise(self.seed, runner.total_env_steps),
+                self.host.acting_snapshot(runner.algo_state))
+            runner, m = self.ingest_and_train(runner, segment)
+            runner.total_env_steps += int(segment["reward"].size)
+            metrics.append(m)
+        agg = mean_metrics(metrics)
+        agg.update({k: float(v) for k, v in bnn_stats.items()})
+        agg["mean_rollout_length"] = float(mbpo.rollout_length(epoch))
+        return runner, agg
+
+    def evaluate(self, runner: MBPORunnerState, num_episodes: int,
+                 seed: int = 0) -> Dict[str, float]:
+        return self.host.evaluate(runner, num_episodes, seed=seed)

@@ -223,6 +223,14 @@ class SAC:
         N(0, 1) [batch_size, A] each."""
         return noise.train((batch_size, self.action_size))
 
+    def acting_state(self, state: SACState) -> SACState:
+        """The acting slice of `state` (JAX sac.py:198-202), what the host
+        loops copy to the CPU for acting: the policy; the critics, their
+        targets, log alpha and the optimizers are None."""
+        return SACState(policy=state.policy, qf=None, target_qf=None,
+                        log_alpha=None, policy_opt=None, qf_opt=None,
+                        alpha_opt=None)
+
     @torch.no_grad()
     def act(self, state: SACState, obs: torch.Tensor,
             eps: torch.Tensor | None = None,

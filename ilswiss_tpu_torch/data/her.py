@@ -48,7 +48,9 @@ class HindsightReplayState:
 class HindsightReplayBuffer:
     def __init__(self, env, num_envs: int, num_episode_slots: int,
                  max_episode_steps: int, relabel_type: str | None = "future",
-                 her_ratio: float = 0.8):
+                 her_ratio: float = 0.8, device=None):
+        """`env` gives the sizes, `discrete` and `compute_reward`; the ring
+        lives on `device` (default the env's: a host goal env has none)."""
         if relabel_type not in RELABEL_TYPES:
             raise ValueError(f"relabel_type {relabel_type!r}: one of "
                              f"{RELABEL_TYPES}")
@@ -56,6 +58,7 @@ class HindsightReplayBuffer:
             raise ValueError(f"{num_episode_slots} episode slots do not "
                              f"divide among {num_envs} envs")
         self.env = env
+        self.device = torch.device(env.device if device is None else device)
         self.num_envs = num_envs
         self.S = num_episode_slots
         self.T = max_episode_steps
@@ -68,8 +71,8 @@ class HindsightReplayBuffer:
     # ------------------------------------------------------------------
     def init(self) -> HindsightReplayState:
         S, T, env = self.S, self.T, self.env
-        kw = dict(dtype=torch.float32, device=env.device)
-        action = (torch.zeros((S, T), dtype=torch.int32, device=env.device)
+        kw = dict(dtype=torch.float32, device=self.device)
+        action = (torch.zeros((S, T), dtype=torch.int32, device=self.device)
                   if env.discrete else
                   torch.zeros((S, T, env.action_size), **kw))
         obs, goal = env.observation_size, env.goal_size
@@ -83,7 +86,7 @@ class HindsightReplayBuffer:
             "next_observation": torch.zeros((S, T, obs), **kw),
             "next_achieved_goal": torch.zeros((S, T, goal), **kw),
         }
-        int32 = dict(dtype=torch.int32, device=env.device)
+        int32 = dict(dtype=torch.int32, device=self.device)
         B, K = self.num_envs, self.K
         return HindsightReplayState(
             data=data,

@@ -1,7 +1,7 @@
 """Variant-dict -> training run (counterpart:
 ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL,
 PPO, MBPO, BC, DAgger, expert demo generation, HER, GCSL, SAC-AE / RAD /
-CURL on device pixel envs and policy evaluation).
+CURL on device pixel envs, policy evaluation, and the host env paths).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -15,11 +15,18 @@ B lockstep envs one loop iteration advances B env steps, so
 grad_steps_per_iter = round(B * train_steps / steps_between).
 
 Every `run_*` takes `device=None`, resolved by `utils.device.resolve_device`:
-the GPU unless the caller names another device.  Only the on-device env
-path exists; a spec that the JAX package would send to its host bridges
-(a gymnasium id, or `env_specs.force_host`) raises NotImplementedError, as
-does a trainer or env that is not ported yet, naming the item of
-ROADMAP.md section 1 that ports it.  Nothing falls back.
+the GPU unless the caller names another device.  Where the JAX launcher
+routes a spec to its host bridges (`_route_host`: `env_specs.force_host`,
+or an env name outside the device registry that gymnasium knows), so does
+the port: `run_sac`, `run_td3`, `run_ddpg`, `run_ppo`, `run_adv_irl`,
+`run_her`, `run_mbpo` and `run_gen_expert` step the env on the host
+(envs/host_mujoco.py, envs/native_mujoco.py) and learn on `device`
+(runtime/host_loop.py).  The other launchers build a device env as the
+JAX ones do, which raises KeyError for a host env name.  A trainer or env
+that is not ported yet (the DMC pixel envs, `env_name: dmc`) raises
+NotImplementedError naming the item of ROADMAP.md section 1 that ports
+it.  Nothing falls back, but the native MuJoCo engine to gymnasium where
+the machine cannot build it (`_make_host_env`).
 """
 
 from __future__ import annotations
@@ -27,11 +34,13 @@ from __future__ import annotations
 import importlib
 import os
 import time
+from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
 import numpy as np
 
 from ilswiss_tpu_torch.envs import ENV_REGISTRY, make, make_vec
+from ilswiss_tpu_torch.envs.host_mujoco import GYM_ENV_IDS
 from ilswiss_tpu_torch.envs.vector import VectorEnv
 from ilswiss_tpu_torch.logging.logger import Logger
 from ilswiss_tpu_torch.runtime.checkpoint import (
@@ -46,25 +55,6 @@ from ilswiss_tpu_torch.utils.guards import (
     PreemptionGuard, check_finite_metrics, enable_debug_nans,
 )
 from ilswiss_tpu_torch.utils.profiling import phase, trace
-
-# the reference envs_dict.py names that the JAX package runs on its host
-# bridges (copy of ilswiss_tpu/envs/host_mujoco.py:29-45)
-GYM_ENV_IDS: Dict[str, str] = {
-    "hopper": "Hopper-v5",
-    "walker": "Walker2d-v5",
-    "halfcheetah": "HalfCheetah-v5",
-    "ant": "Ant-v5",
-    "humanoid": "Humanoid-v5",
-    "swimmer": "Swimmer-v5",
-    "invertedpendulum": "InvertedPendulum-v5",
-    "inverteddoublependulum": "InvertedDoublePendulum-v5",
-    "lunarlandercont": "LunarLanderContinuous-v3",
-    "bipedalwalker": "BipedalWalker-v3",
-    "fetch-reach": "FetchReach-v4",
-    "fetch-push": "FetchPush-v4",
-    "fetch-pick-place": "FetchPickAndPlace-v4",
-    "fetch-slide": "FetchSlide-v4",
-}
 
 HOST_ITEM = "2.8"
 
@@ -102,16 +92,75 @@ def _is_host_env(env_name: str) -> bool:
         f"and not registered with gymnasium")
 
 
-def _route_host(variant: Dict, env_name: str) -> None:
-    """Raises where the JAX package would take its host path
-    (`env_specs: {force_host: true}`, or a host env name): the host
-    bridges are not ported.  Returns for the on-device path."""
+def _route_host(variant: Dict, env_name: str) -> bool:
+    """Whether the run takes the host path: the device registry wins,
+    unless the spec pins the host path with `env_specs: {force_host:
+    true}` (exp_specs/sac/sac_hopper_native.yaml)."""
     if bool(_alg(variant, "env_specs").get("force_host", False)):
-        raise _not_ported("the host env path (env_specs.force_host)",
-                          HOST_ITEM)
-    if _is_host_env(env_name):
-        raise _not_ported(f"the host env path (env {env_name!r})",
-                          HOST_ITEM)
+        return True
+    return _is_host_env(env_name)
+
+
+def _make_host_env(variant: Dict, env_name: str, env_kwargs: Dict,
+                   num_envs: int, seed: int, logger: Logger,
+                   demo_stats: Dict | None = None,
+                   wrap_absorbing: bool = False):
+    """A host vector env: the native engine where it runs the env (and
+    `use_native_engine`, default true, allows it), else gymnasium threads;
+    with demo-stats observation scaling (reference ScaledEnv / MinmaxEnv,
+    adv_irl_exp_script.py:86-115) and DAC absorbing states.
+
+    The native engine gives way to gymnasium, with the JAX launcher's log
+    line, only where the machine cannot build or load it (ImportError: no
+    mujoco or gymnasium; OSError: no g++, or a library that does not
+    load).  Anything else raises: the JAX launcher catches every
+    Exception here, so a compile error in mjvec.cpp silently changes the
+    engine of a run (ROADMAP.md section 3)."""
+    from ilswiss_tpu_torch.envs.host_mujoco import (
+        AbsorbingHostEnv, GymVectorEnv, MinmaxHostEnv, ScaledHostEnv,
+    )
+    from ilswiss_tpu_torch.envs.native_mujoco import (
+        _ENV_TYPES, NativeMjVectorEnv,
+    )
+
+    env_kwargs = dict(env_kwargs)
+    max_path_length = env_kwargs.pop("max_episode_steps", None)
+    env = None
+    if bool(variant.get("use_native_engine", True)) and \
+            env_name in _ENV_TYPES:
+        try:
+            env = NativeMjVectorEnv(env_name, num_envs=num_envs, seed=seed,
+                                    max_episode_steps=max_path_length)
+            logger.log(f"using native mjvec engine for {env_name}")
+        except (ImportError, OSError) as e:
+            logger.log(f"native engine unavailable ({e}); using gym")
+    if env is None:
+        env = GymVectorEnv(env_name, num_envs=num_envs, seed=seed,
+                           max_episode_steps=max_path_length,
+                           env_kwargs=env_kwargs)
+    if demo_stats is not None:
+        if demo_stats.get("minmax"):
+            env = MinmaxHostEnv(env, demo_stats["obs_min"],
+                                demo_stats["obs_max"])
+        else:
+            env = ScaledHostEnv(env, demo_stats["obs_mean"],
+                                demo_stats["obs_std"])
+    if wrap_absorbing:
+        env = AbsorbingHostEnv(env)
+    return env
+
+
+def _host_env_sizes(env_name: str, env_kwargs: Dict) -> tuple[int, int]:
+    """(observation size, action size) of a host env, from a one-env
+    gymnasium probe."""
+    from ilswiss_tpu_torch.envs.host_mujoco import GymVectorEnv
+
+    kw = dict(env_kwargs)
+    kw.pop("max_episode_steps", None)
+    probe = GymVectorEnv(env_name, num_envs=1, env_kwargs=kw)
+    sizes = (probe.observation_size, probe.action_size)
+    probe.close()
+    return sizes
 
 
 def _setup(variant: Dict, default_exp_name: str):
@@ -326,14 +375,162 @@ def _run_off_policy(algo, vec: VectorEnv, rl: Dict, logger: Logger,
     return runner
 
 
+def _num_host_eval_episodes(rl: Dict, default_steps: int = 10_000) -> int:
+    """The host paths evaluate num_steps_per_eval // max_path_length
+    episodes (at least 1), as the JAX host paths do."""
+    return max(1, int(rl.get("num_steps_per_eval", default_steps))
+               // int(rl.get("max_path_length", 1000)))
+
+
+def _run_host_off_policy(algo, variant: Dict, rl: Dict, logger: Logger,
+                         seed: int, env_name: str, env_kwargs: Dict,
+                         num_envs: int, demo_stats: Dict | None = None,
+                         wrap_absorbing: bool = False):
+    """The host path of the off-policy launchers (JAX experiments.py:
+    118-183): a host env, `HostOffPolicyLoop` with the learner on
+    `algo.device`, the host evaluation, and per epoch the trainer's
+    metrics, the evaluation's keys, the phase times (Time/...),
+    TotalEnvSteps, TrainTime and EnvStepsPerSec; snapshots every epoch
+    ('last', the whole runner, and 'best', as the JAX host path).
+
+    Resume (`load_params`): a full snapshot holds the runner's env-step
+    count, so TotalEnvSteps continues from it; after a light resume (a
+    params-only snapshot) the count restarts at the warmup's and the
+    logged TotalEnvSteps adds start_epoch * num_steps_per_epoch, the
+    device path's convention (the JAX host path instead logs max(count,
+    start_epoch * num_steps_per_epoch): ROADMAP.md section 3)."""
+    from ilswiss_tpu_torch.runtime.host_loop import (
+        HostLoopConfig, HostOffPolicyLoop,
+    )
+    from ilswiss_tpu_torch.utils.profiling import TIMER
+
+    env = _make_host_env(variant, env_name, env_kwargs, num_envs, seed,
+                         logger, demo_stats=demo_stats,
+                         wrap_absorbing=wrap_absorbing)
+    loop = HostOffPolicyLoop(env, algo, HostLoopConfig(
+        batch_size=int(rl.get("batch_size", 256)),
+        replay_capacity=int(rl.get("replay_buffer_size", 1_000_000)),
+        steps_between_train_calls=int(
+            rl.get("num_steps_between_train_calls", 1000)),
+        train_steps_per_call=int(
+            rl.get("num_train_steps_per_train_call", 1000)),
+        min_steps_before_training=int(
+            rl.get("min_steps_before_training", 1000)),
+        no_terminal=bool(rl.get("no_terminal", False)),
+    ))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 10_000))
+    num_epochs = int(rl.get("num_epochs", 100))
+    num_eval_episodes = _num_host_eval_episodes(rl)
+    snap = SnapshotManager(logger.log_dir,
+                           gap=int(rl.get("freq_saving", 10)),
+                           save_best=bool(rl.get("save_best", True)))
+    logger.log(f"trainer {type(algo).__name__} on host env {env_name} "
+               f"({type(env).__name__}): {algo.config}; {loop.config}")
+    runner = loop.init(seed)
+    runner, start_epoch, resumed, meta = _maybe_resume(variant, logger,
+                                                       runner)
+    snap.best_value = float(meta.get("best_value", snap.best_value))
+    if resumed != "full":
+        runner = loop.warmup(runner)
+        logger.log(f"warmup done: {runner.total_env_steps} env steps")
+    steps_offset = (start_epoch * steps_per_epoch
+                    if resumed == "light" else 0)
+    TIMER.reset()
+    profile_dir = variant.get("profile_dir")
+    try:
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.time()
+            with trace(profile_dir if epoch == start_epoch + 1 else None):
+                runner, metrics = loop.train_epoch(runner, steps_per_epoch)
+            train_time = time.time() - t0
+            with phase("eval"):
+                eval_stats = loop.evaluate(runner, num_eval_episodes,
+                                           seed=seed + epoch + 1)
+            logger.record_dict(metrics, prefix="trainer/")
+            logger.record_dict(eval_stats)
+            logger.record_dict(TIMER.stamp())
+            logger.record_tabular("TotalEnvSteps",
+                                  steps_offset + runner.total_env_steps)
+            logger.record_tabular("TrainTime", train_time)
+            logger.record_tabular("EnvStepsPerSec",
+                                  steps_per_epoch / max(train_time, 1e-9))
+            logger.dump_tabular(epoch)
+            snap.on_epoch(epoch, runner, eval_stats)
+    finally:
+        env.close()
+    logger.close()
+    return runner
+
+
+def _run_host_on_policy(algo, variant: Dict, p: Dict, rl: Dict,
+                        logger: Logger, seed: int, env_name: str,
+                        env_kwargs: Dict, num_envs: int):
+    """PPO's host path (JAX experiments.py:186-227): host rollouts,
+    `HostOnPolicyLoop` with the learner on `algo.device`; per epoch the
+    trainer's metrics, the evaluation's keys, TotalEnvSteps, TrainTime and
+    EnvStepsPerSec, and a snapshot of the runner (moments included)."""
+    from ilswiss_tpu_torch.runtime.host_loop import HostOnPolicyLoop
+
+    env = _make_host_env(variant, env_name, env_kwargs, num_envs, seed,
+                         logger)
+    loop = HostOnPolicyLoop(
+        env, algo, rollout_length=int(p.get("rollout_length", 128)),
+        normalize_obs=bool(_alg(variant, "env_specs").get("obs_norm",
+                                                          False)))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 10_000))
+    num_eval_episodes = _num_host_eval_episodes(rl)
+    snap = SnapshotManager(logger.log_dir,
+                           gap=int(rl.get("freq_saving", 10)),
+                           save_best=bool(rl.get("save_best", True)))
+    logger.log(f"trainer {type(algo).__name__} on host env {env_name} "
+               f"({type(env).__name__}): {algo.config}")
+    runner = loop.init(seed)
+    try:
+        for epoch in range(int(rl.get("num_epochs", 100))):
+            t0 = time.time()
+            runner, metrics = loop.train_epoch(runner, steps_per_epoch)
+            train_time = time.time() - t0
+            eval_stats = loop.evaluate(runner, num_eval_episodes,
+                                       seed=seed + epoch + 1)
+            logger.record_dict(metrics, prefix="trainer/")
+            logger.record_dict(eval_stats)
+            logger.record_tabular("TotalEnvSteps", runner.total_env_steps)
+            logger.record_tabular("TrainTime", train_time)
+            logger.record_tabular("EnvStepsPerSec",
+                                  steps_per_epoch / max(train_time, 1e-9))
+            logger.dump_tabular(epoch)
+            snap.on_epoch(epoch, runner, eval_stats)
+    finally:
+        env.close()
+    logger.close()
+    return runner
+
+
 # --------------------------------------------------------------------------
-def _on_device_vec(variant: Dict, default_exp_name: str, device):
-    """`_setup`, the host route's check, and the vectorized env."""
+def _device_vec(variant: Dict, default_exp_name: str, device):
+    """`_setup` and the vectorized device env, for the launchers that the
+    JAX package never routes to a host env."""
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
         variant, default_exp_name)
-    _route_host(variant, env_name)
     vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
     return seed, vec, rl, logger
+
+
+@dataclass
+class _RoutedEnv:
+    """A routed launcher's env: the device vec env, or None on the host
+    path, and the env's sizes either way."""
+    vec: VectorEnv | None
+    obs_size: int
+    action_size: int
+
+
+def _routed_env(variant: Dict, env_name: str, env_kwargs: Dict,
+                num_envs: int, device) -> _RoutedEnv:
+    if _route_host(variant, env_name):
+        return _RoutedEnv(None, *_host_env_sizes(env_name, env_kwargs))
+    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    return _RoutedEnv(vec, vec.env.observation_size, vec.env.action_size)
 
 
 def _nets(variant: Dict) -> Dict[str, int]:
@@ -346,11 +543,13 @@ def run_sac(variant: Dict[str, Any], device=None):
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
 
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "sac", device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant,
+                                                              "sac")
+    env = _routed_env(variant, env_name, env_kwargs, num_envs, device)
     p = _alg(variant, "sac_params")
     algo = SAC(
-        obs_size=vec.env.observation_size,
-        action_size=vec.env.action_size,
+        obs_size=env.obs_size,
+        action_size=env.action_size,
         config=SACConfig(
             discount=float(p.get("discount", 0.99)),
             reward_scale=float(p.get("reward_scale", 1.0)),
@@ -366,7 +565,10 @@ def run_sac(variant: Dict[str, Any], device=None):
         ),
         use_fused_chain=bool(p.get("use_fused_chain", False)),
         device=device, **_nets(variant))
-    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+    if env.vec is None:
+        return _run_host_off_policy(algo, variant, rl, logger, seed,
+                                    env_name, env_kwargs, num_envs)
+    return _run_off_policy(algo, env.vec, rl, logger, seed, variant=variant)
 
 
 def run_sac_v(variant: Dict[str, Any], device=None):
@@ -375,7 +577,7 @@ def run_sac_v(variant: Dict[str, Any], device=None):
     from ilswiss_tpu_torch.algorithms.sac_v import SACV, SACVConfig
 
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "sac_v", device)
+    seed, vec, rl, logger = _device_vec(variant, "sac_v", device)
     p = _alg(variant, "sac_params")
     algo = SACV(
         obs_size=vec.env.observation_size,
@@ -403,11 +605,13 @@ def run_td3(variant: Dict[str, Any], device=None):
     from ilswiss_tpu_torch.algorithms.td3 import TD3, TD3Config
 
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "td3", device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant,
+                                                              "td3")
+    env = _routed_env(variant, env_name, env_kwargs, num_envs, device)
     p = _alg(variant, "td3_params")
     algo = TD3(
-        obs_size=vec.env.observation_size,
-        action_size=vec.env.action_size,
+        obs_size=env.obs_size,
+        action_size=env.action_size,
         config=TD3Config(
             discount=float(p.get("discount", 0.99)),
             reward_scale=float(p.get("reward_scale", 1.0)),
@@ -423,7 +627,10 @@ def run_td3(variant: Dict[str, Any], device=None):
             exploration_noise=float(p.get("exploration_noise", 0.1)),
         ),
         device=device, **_nets(variant))
-    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+    if env.vec is None:
+        return _run_host_off_policy(algo, variant, rl, logger, seed,
+                                    env_name, env_kwargs, num_envs)
+    return _run_off_policy(algo, env.vec, rl, logger, seed, variant=variant)
 
 
 def run_ddpg(variant: Dict[str, Any], device=None):
@@ -431,11 +638,13 @@ def run_ddpg(variant: Dict[str, Any], device=None):
     from ilswiss_tpu_torch.algorithms.ddpg import DDPG, DDPGConfig
 
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "ddpg", device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant,
+                                                              "ddpg")
+    env = _routed_env(variant, env_name, env_kwargs, num_envs, device)
     p = _alg(variant, "ddpg_params")
     algo = DDPG(
-        obs_size=vec.env.observation_size,
-        action_size=vec.env.action_size,
+        obs_size=env.obs_size,
+        action_size=env.action_size,
         config=DDPGConfig(
             discount=float(p.get("discount", 0.99)),
             reward_scale=float(p.get("reward_scale", 1.0)),
@@ -444,7 +653,10 @@ def run_ddpg(variant: Dict[str, Any], device=None):
             soft_target_tau=float(p.get("soft_target_tau", 1e-2)),
         ),
         device=device, **_nets(variant))
-    return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
+    if env.vec is None:
+        return _run_host_off_policy(algo, variant, rl, logger, seed,
+                                    env_name, env_kwargs, num_envs)
+    return _run_off_policy(algo, env.vec, rl, logger, seed, variant=variant)
 
 
 def run_dqn(variant: Dict[str, Any], device=None):
@@ -454,7 +666,7 @@ def run_dqn(variant: Dict[str, Any], device=None):
     from ilswiss_tpu_torch.algorithms.dqn import DQN, DQNConfig
 
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "dqn", device)
+    seed, vec, rl, logger = _device_vec(variant, "dqn", device)
     p = _alg(variant, "dqn_params")
     algo = DQN(
         obs_size=vec.env.observation_size,
@@ -480,7 +692,7 @@ def run_discrete_sac(variant: Dict[str, Any], device=None):
     )
 
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "discrete_sac", device)
+    seed, vec, rl, logger = _device_vec(variant, "discrete_sac", device)
     p = _alg(variant, "discrete_sac_params" if variant.get(
         "discrete_sac_params") else "sac_params")
     algo = DiscreteSAC(
@@ -523,12 +735,16 @@ def _q_target_bounds(variant: Dict, mode: str, sp: Dict
 
 def run_adv_irl(variant: Dict[str, Any], device=None):
     """GAIL / AIRL / FAIRL (reference run_scripts/adv_irl_exp_script.py;
-    the JAX `run_adv_irl`'s device branch, experiments.py:978-1148): demos
-    from `demo_path` or `expert_name`, `traj_num` subsetting, demo-stats
-    env scaling (`scale_env_with_demo_stats` / `minmax_env_with_demo_stats`,
+    the JAX `run_adv_irl`, experiments.py:978-1148): demos from
+    `demo_path` or `expert_name`, `traj_num` subsetting, demo-stats env
+    scaling (`scale_env_with_demo_stats` / `minmax_env_with_demo_stats`,
     the env and the demos alike), DAC absorbing states (`wrap_absorbing`)
     and `no_terminal` storage; evaluation runs on the wrapped env, so its
-    returns are the env's own rewards."""
+    returns are the env's own rewards.  On the host path the env is the
+    host env in the host wrappers (envs/host_mujoco.py), and
+    `num_update_loops_per_train_call` is the spec's: one `train_call` a
+    segment, the reference's cadence; on the device path it is rescaled
+    to one call a loop iteration."""
     from ilswiss_tpu_torch.algorithms.adv_irl import AdvIRL, AdvIRLConfig
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
     from ilswiss_tpu_torch.data.demo import (
@@ -547,31 +763,45 @@ def run_adv_irl(variant: Dict[str, Any], device=None):
     for k, v in p.items():
         if not isinstance(v, dict):
             rl.setdefault(k, v)
-    _route_host(variant, env_name)
+    host = _route_host(variant, env_name)
     wrap_absorbing = bool(p.get("wrap_absorbing", False))
 
     demos = _load_demos(variant, device)
-    env = make(env_name, device=device, **env_kwargs)
+    demo_stats = None
     if bool(variant.get("scale_env_with_demo_stats", False)):
-        stats = demo_obs_stats(demos)
-        demos = scale_demos(demos, stats["obs_mean"], stats["obs_std"])
-        env = ScaledEnv(env, obs_mean=stats["obs_mean"],
-                        obs_std=stats["obs_std"])
+        demo_stats = demo_obs_stats(demos)
+        demos = scale_demos(demos, demo_stats["obs_mean"],
+                            demo_stats["obs_std"])
     elif bool(variant.get("minmax_env_with_demo_stats", False)):
-        stats = demo_obs_stats(demos)
-        demos = minmax_demos(demos, stats["obs_min"], stats["obs_max"])
-        env = MinmaxEnv(env, stats["obs_min"], stats["obs_max"])
+        demo_stats = dict(demo_obs_stats(demos), minmax=True)
+        demos = minmax_demos(demos, demo_stats["obs_min"],
+                             demo_stats["obs_max"])
     if wrap_absorbing:
         demos = wrap_absorbing_demos(demos)
-        env = AbsorbingEnv(env)
-    vec = VectorEnv(env, num_envs)
-    obs_size, action_size = env.observation_size, env.action_size
-    # one train call per loop iteration (num_envs env steps): the
-    # update-loop count is rescaled to keep the reference's updates per
-    # env step
-    update_loops = max(1, round(
-        num_envs * int(p.get("num_update_loops_per_train_call", 1))
-        / max(1, int(rl.get("num_steps_between_train_calls", 1000)))))
+    if host:
+        obs_size, action_size = _host_env_sizes(env_name, env_kwargs)
+        obs_size += int(wrap_absorbing)
+        # one train call per steps_between_train_calls-step segment: the
+        # reference's cadence as it stands
+        update_loops = int(p.get("num_update_loops_per_train_call", 1))
+    else:
+        env = make(env_name, device=device, **env_kwargs)
+        if demo_stats is not None and demo_stats.get("minmax"):
+            env = MinmaxEnv(env, demo_stats["obs_min"],
+                            demo_stats["obs_max"])
+        elif demo_stats is not None:
+            env = ScaledEnv(env, obs_mean=demo_stats["obs_mean"],
+                            obs_std=demo_stats["obs_std"])
+        if wrap_absorbing:
+            env = AbsorbingEnv(env)
+        vec = VectorEnv(env, num_envs)
+        obs_size, action_size = env.observation_size, env.action_size
+        # one train call per loop iteration (num_envs env steps): the
+        # update-loop count is rescaled to keep the reference's updates
+        # per env step
+        update_loops = max(1, round(
+            num_envs * int(p.get("num_update_loops_per_train_call", 1))
+            / max(1, int(rl.get("num_steps_between_train_calls", 1000)))))
 
     sp = _alg(variant, "sac_params")
     mode = str(p.get("mode", "gail"))
@@ -643,6 +873,10 @@ def run_adv_irl(variant: Dict[str, Any], device=None):
                 variant.get("disc_rnn_bidirectional", True)),
         ),
     )
+    if host:
+        return _run_host_off_policy(
+            algo, variant, rl, logger, seed, env_name, env_kwargs, num_envs,
+            demo_stats=demo_stats, wrap_absorbing=wrap_absorbing)
     return _run_off_policy(algo, vec, rl, logger, seed, variant=variant)
 
 
@@ -701,17 +935,20 @@ def run_eval_policy(variant: Dict[str, Any], device=None):
 
 
 def run_ppo(variant: Dict[str, Any], device=None):
-    """PPO (reference run_scripts/ppo_exp_script.py; the JAX `run_ppo`'s
-    device branch, experiments.py:646-725): `ppo_params` with the JAX
-    defaults, `rollout_length`, and `env_specs.obs_norm` as the loop's
+    """PPO (reference run_scripts/ppo_exp_script.py; the JAX `run_ppo`,
+    experiments.py:646-725): `ppo_params` with the JAX defaults,
+    `rollout_length`, and `env_specs.obs_norm` as the loop's
     `normalize_obs`.  The evaluator runs on the training envs, its act
     normalizing observations with the runner's moments; each epoch logs
     the trainer's metrics, the evaluation's keys, TotalEnvSteps, TrainTime
     and, as the off-policy launcher, EvalTime and EnvStepsPerSec, and hands
-    the whole runner (moments included) to `SnapshotManager.on_epoch`.
+    the whole runner (moments included) to `SnapshotManager.on_epoch`.  A
+    host env goes through `_run_host_on_policy`.
 
-    The JAX launcher never reads `load_params` for PPO, so a resume is
-    silently dropped there; here a set `load_params` raises ValueError."""
+    The JAX launcher never reads `load_params` for PPO, on either path
+    (its `_run_host_on_policy` never calls `_maybe_resume`), so a resume
+    is silently dropped there; here a set `load_params` raises ValueError
+    before any work."""
     from ilswiss_tpu_torch.algorithms.ppo import PPO, PPOConfig
     from ilswiss_tpu_torch.runtime.onpolicy import (
         OnPolicyConfig, OnPolicyLoop,
@@ -719,11 +956,12 @@ def run_ppo(variant: Dict[str, Any], device=None):
 
     _refuse_resume(variant, "PPO")
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "ppo", device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "ppo")
+    env = _routed_env(variant, env_name, env_kwargs, num_envs, device)
     p = _alg(variant, "ppo_params")
     algo = PPO(
-        obs_size=vec.env.observation_size,
-        action_size=vec.env.action_size,
+        obs_size=env.obs_size,
+        action_size=env.action_size,
         config=PPOConfig(
             discount=float(p.get("discount", 0.99)),
             reward_scale=float(p.get("reward_scale", 1.0)),
@@ -737,6 +975,10 @@ def run_ppo(variant: Dict[str, Any], device=None):
             mini_batch_size=int(p.get("mini_batch_size", 64)),
         ),
         device=device, **_nets(variant))
+    if env.vec is None:
+        return _run_host_on_policy(algo, variant, p, rl, logger, seed,
+                                   env_name, env_kwargs, num_envs)
+    vec = env.vec
     loop = OnPolicyLoop(vec, algo, OnPolicyConfig(
         rollout_length=int(p.get("rollout_length", 128)),
         normalize_obs=bool(_alg(variant, "env_specs").get("obs_norm",
@@ -782,22 +1024,65 @@ def run_ppo(variant: Dict[str, Any], device=None):
     return runner
 
 
+def _run_host_mbpo(mbpo, variant: Dict, rl: Dict, logger: Logger,
+                   seed: int, env_name: str, env_kwargs: Dict,
+                   num_envs: int):
+    """MBPO's host path (JAX experiments.py:1772-1800): `HostMBPOLoop`
+    with num_train_steps_per_train_call / num_steps_between_train_calls
+    SAC steps an env step; per epoch the trainer's metrics, the host
+    evaluation's keys, TotalEnvSteps and TrainTime, and a snapshot."""
+    from ilswiss_tpu_torch.algorithms.mbpo import HostMBPOLoop
+
+    env = _make_host_env(variant, env_name, env_kwargs, num_envs, seed,
+                         logger)
+    loop = HostMBPOLoop(
+        env, mbpo,
+        grad_steps_per_env_step=(
+            int(rl.get("num_train_steps_per_train_call", 20))
+            / max(1, int(rl.get("num_steps_between_train_calls", 1)))),
+        no_terminal=bool(rl.get("no_terminal", False)))
+    num_eval_episodes = _num_host_eval_episodes(rl, 5000)
+    snap = SnapshotManager(logger.log_dir,
+                           gap=int(rl.get("freq_saving", 10)))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 1000))
+    runner = loop.warmup(loop.init(seed))
+    try:
+        for epoch in range(int(rl.get("num_epochs", 100))):
+            t0 = time.time()
+            runner, metrics = loop.train_epoch(runner, epoch, steps_per_epoch,
+                                               log=logger.log)
+            train_time = time.time() - t0
+            eval_stats = loop.evaluate(runner, num_eval_episodes,
+                                       seed=seed + epoch + 1)
+            logger.record_dict(metrics, prefix="trainer/")
+            logger.record_dict(eval_stats)
+            logger.record_tabular("TotalEnvSteps", runner.total_env_steps)
+            logger.record_tabular("TrainTime", train_time)
+            logger.dump_tabular(epoch)
+            snap.on_epoch(epoch, runner, eval_stats)
+    finally:
+        env.close()
+    logger.close()
+    return runner
+
+
 def run_mbpo(variant: Dict[str, Any], device=None):
-    """MBPO (reference run_scripts/mbpo_exp_script.py; the JAX `run_mbpo`'s
-    device branch, experiments.py:1722-1836): the loop keys under
+    """MBPO (reference run_scripts/mbpo_exp_script.py; the JAX `run_mbpo`,
+    experiments.py:1722-1836): the loop keys under
     `rl_alg_params` or nested in `mbpo_params`, `bnn_params` with the JAX
     defaults, the terminal predicate of the env's name, evaluation on the
     training envs; each epoch logs the trainer's metrics, the evaluation's
     keys, TotalEnvSteps, TrainTime, EvalTime and EnvStepsPerSec, and hands
     the whole runner to `SnapshotManager.on_epoch` ('best' holds the
-    inner SAC state, as the off-policy launcher's).
+    inner SAC state, as the off-policy launcher's).  A host env goes
+    through `_run_host_mbpo`.
 
     Unlike the JAX launcher (ROADMAP.md section 3): SAC reads
     `soft_target_tau`, `policy_lr`, `qf_lr` and `target_entropy` from
     `sac_params` as well as `discount` and `reward_scale` (the JAX one
     drops the four, so mbpo_hopper.yaml's target entropy -1 becomes -1.5
-    there), and a set `load_params` raises ValueError (the JAX device
-    branch never reads it and starts afresh over the run's snapshots)."""
+    there), and a set `load_params` raises ValueError (the JAX launcher
+    never reads it and starts afresh over the run's snapshots)."""
     from ilswiss_tpu_torch.algorithms.bnn_trainer import BNNTrainerConfig
     from ilswiss_tpu_torch.algorithms.mbpo import MBPO, MBPOConfig
     from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
@@ -813,11 +1098,10 @@ def run_mbpo(variant: Dict[str, Any], device=None):
     for k, v in mp.items():
         if not isinstance(v, dict):
             rl.setdefault(k, v)
-    _route_host(variant, env_name)
-    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    env = _routed_env(variant, env_name, env_kwargs, num_envs, device)
     sp = _alg(variant, "sac_params")
     sac = SAC(
-        vec.env.observation_size, vec.env.action_size,
+        env.obs_size, env.action_size,
         SACConfig(
             discount=float(sp.get("discount", 0.99)),
             reward_scale=float(sp.get("reward_scale", 1.0)),
@@ -830,7 +1114,9 @@ def run_mbpo(variant: Dict[str, Any], device=None):
     bp = _alg(variant, "bnn_params")
     max_path_length = int(rl.get("max_path_length", 1000))
     mbpo = MBPO(
-        vec, sac, get_terminal_func(env_name),
+        env.vec, sac, get_terminal_func(env_name),
+        obs_size=env.obs_size, action_size=env.action_size,
+        num_envs=num_envs,
         config=MBPOConfig(
             model_train_freq=int(mp.get("model_train_freq", 250)),
             rollout_batch_size=int(mp.get("rollout_batch_size", 100_000)),
@@ -855,14 +1141,18 @@ def run_mbpo(variant: Dict[str, Any], device=None):
     )
     steps_per_epoch = int(rl.get("num_steps_per_epoch", 1000))
     num_epochs = int(rl.get("num_epochs", 100))
+    logger.log(f"trainer {type(sac).__name__}: {sac.config}; "
+               f"{mbpo.config}; {mbpo.bnn.config}")
+    if env.vec is None:
+        return _run_host_mbpo(mbpo, variant, rl, logger, seed, env_name,
+                              env_kwargs, num_envs)
+    vec = env.vec
     evaluator = make_evaluator(
         vec, lambda s, o: sac.act(s, o, deterministic=True), max_path_length)
     snap = SnapshotManager(logger.log_dir,
                            gap=int(rl.get("freq_saving", 10)),
                            best_state_fn=lambda r: {
                                "algo_state": r.algo_state})
-    logger.log(f"trainer {type(sac).__name__}: {sac.config}; "
-               f"{mbpo.config}; {mbpo.bnn.config}")
     runner = mbpo.warmup(mbpo.init(seed))
     for epoch in range(num_epochs):
         t0, before = time.time(), runner.total_env_steps
@@ -938,7 +1228,6 @@ def run_bc(variant: Dict[str, Any], device=None):
     _refuse_resume(variant, "BC")
     device = resolve_device(device)
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "bc")
-    _route_host(variant, env_name)
     vec = make_vec(env_name, num_envs=max(num_envs, 8), device=device,
                    **env_kwargs)
     p = _alg(variant, "bc_params")
@@ -1010,7 +1299,6 @@ def run_dagger(variant: Dict[str, Any], device=None):
     # the reference nests the loop params inside dagger_params
     for k, v in p.items():
         rl.setdefault(k, v)
-    _route_host(variant, env_name)
     vec = make_vec(env_name, num_envs=max(num_envs, 8), device=device,
                    **env_kwargs)
     bc = BC(vec.env.observation_size, vec.env.action_size,
@@ -1066,19 +1354,62 @@ def _subsample_transitions(state, factor: int, seed: int):
         ep[sel], device=state.ep_id.device)
 
 
+def _collect_host_transitions(variant: Dict, env_name: str,
+                              env_kwargs: Dict, num_envs: int, seed: int,
+                              act_fn: Callable, steps_per_env: int,
+                              logger: Logger, device):
+    """`steps_per_env` steps of `act_fn(obs, noise)` (tensors on `device`,
+    draws from `Noise(seed, device)`) over a host vector env reset with
+    `seed`, packed as a demo ReplayState on `device`: episode ids env *
+    1,000,000 + the env's episode count (JAX experiments.py:1981-2017,
+    without its DMC case).  The env is closed on exit."""
+    import torch
+
+    from ilswiss_tpu_torch.data.demo import demos_to_replay_state
+
+    env = _make_host_env(variant, env_name, env_kwargs, num_envs, seed,
+                         logger)
+    noise = Noise(seed, device)
+    try:
+        obs = env.reset(seed=seed)
+        rows = {k: [] for k in
+                ("obs", "action", "reward", "next_obs", "terminal")}
+        ep_rows = []
+        ep_counter = np.arange(num_envs, dtype=np.int64) * 1_000_000
+        for _ in range(steps_per_env):
+            action = act_fn(torch.as_tensor(obs, device=device),
+                            noise).cpu().numpy()
+            obs_prev, true_next, reward, terminal, done, obs = env.step(
+                action)
+            rows["obs"].append(obs_prev)
+            rows["action"].append(action)
+            rows["reward"].append(reward)
+            rows["next_obs"].append(true_next)
+            rows["terminal"].append(terminal.astype(np.float32))
+            ep_rows.append(ep_counter.copy())
+            ep_counter += done.astype(np.int64)
+    finally:
+        env.close()
+    flat = {k: np.concatenate(v, axis=0) for k, v in rows.items()}
+    return demos_to_replay_state(
+        flat["obs"], flat["action"], flat["reward"], flat["next_obs"],
+        flat["terminal"], np.concatenate(ep_rows).astype(np.int32),
+        device=device)
+
+
 def run_gen_expert(variant: Dict[str, Any], device=None):
     """Expert demos from a scripted controller (`use_scripted_policy`,
     envs/experts.py) or a trained `sac` / `td3` snapshot at `expert_path`
-    (`expert_algo`), rolled over `env_num` device envs for num_rollouts *
+    (`expert_algo`), rolled over `env_num` device or host envs
+    (`_route_host`; `_collect_host_transitions`) for num_rollouts *
     max_path_length steps in all, subsampled per episode
     (`subsample_factor`), saved to `save_path` (default
     demos/<exp_name>.npz) and registered under `expert_name` in
     `demos_listing` (default demos_listing.yaml) (reference
-    run_scripts/gen_expert_demos.py; the device branches of the JAX
-    `run_gen_expert`, experiments.py:1839-1978).  The DMC pixel branch
-    and a host env raise naming item 2.8; a set `load_params`
-    raises ValueError (the JAX launcher never reads it).  Returns the
-    path written."""
+    run_scripts/gen_expert_demos.py; the JAX `run_gen_expert`,
+    experiments.py:1839-1978).  The DMC pixel branch raises naming item
+    2.8; a set `load_params` raises ValueError (the JAX launcher never
+    reads it).  Returns the path written."""
     import yaml
 
     from ilswiss_tpu_torch.data.demo import save_demos_npz
@@ -1092,7 +1423,7 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     if env_name == "dmc":
         # it renders DMC on the host (envs/host_dmc.py), a host bridge
         raise _not_ported("gen_expert's DMC pixel branch", HOST_ITEM)
-    _route_host(variant, env_name)
+    host = _route_host(variant, env_name)
     num_envs = max(1, num_envs)
     max_path_length = int(variant.get(
         "max_path_length", env_kwargs.get("max_episode_steps", 1000)))
@@ -1101,7 +1432,8 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     subsample = max(1, int(variant.get("subsample_factor", 1)))
     steps_per_env = -(-num_rollouts * max_path_length // num_envs)
     deterministic = bool(variant.get("use_deterministic_expert", True))
-    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    vec = None if host else make_vec(env_name, num_envs=num_envs,
+                                     device=device, **env_kwargs)
 
     if bool(variant.get("use_scripted_policy", False)):
         if env_name not in SCRIPTED_EXPERTS:
@@ -1111,7 +1443,9 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
         act_fn = lambda obs, noise: controller(obs)  # noqa: E731
     else:
         expert_algo = str(variant.get("expert_algo", "sac"))
-        obs_size, action_size = vec.env.observation_size, vec.env.action_size
+        obs_size, action_size = (
+            _host_env_sizes(env_name, env_kwargs) if host
+            else (vec.env.observation_size, vec.env.action_size))
         nets = dict(net_size=int(variant.get("net_size", 256)),
                     num_hidden_layers=int(variant.get("num_hidden_layers",
                                                       2)))
@@ -1132,8 +1466,13 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
             return algo.act(algo_state, obs,
                             *algo.act_noise(noise, obs.shape[0]))
 
-    demos = collect_transitions(vec, act_fn, steps_per_env,
-                                Noise(seed, device))
+    if host:
+        demos = _collect_host_transitions(variant, env_name, env_kwargs,
+                                          num_envs, seed, act_fn,
+                                          steps_per_env, logger, device)
+    else:
+        demos = collect_transitions(vec, act_fn, steps_per_env,
+                                    Noise(seed, device))
     demos = _subsample_transitions(demos, subsample, seed)
 
     out_path = str(variant.get("save_path") or os.path.join(
@@ -1217,7 +1556,6 @@ def run_sac_ae(variant: Dict[str, Any], device=None):
     if env_name == "dmc":
         raise _not_ported("the DMC pixel envs (envs/host_dmc.py)",
                           HOST_ITEM)
-    _route_host(variant, env_name)
     vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
     img_size = vec.env.observation_size[0]
     p = _alg(variant, "sac_params")
@@ -1273,22 +1611,84 @@ def run_sac_ae(variant: Dict[str, Any], device=None):
                        seed, device)
 
 
+def _run_host_her(her, env, rl: Dict, logger: Logger, seed: int,
+                  relabel: Dict, num_episode_slots: int):
+    """HER's host path (JAX experiments.py:1571-1609): segments of
+    max(horizon * env_num, num_steps_between_train_calls) env steps with
+    num_train_steps_per_train_call / num_steps_between_train_calls inner
+    steps an env step, a warmup of `min_steps_before_training` steps (or
+    two episodes of every env), the SuccessRate evaluation; per epoch the
+    trainer's metrics, the evaluation's keys, TotalEnvSteps and TrainTime,
+    and a snapshot."""
+    from ilswiss_tpu_torch.algorithms.her import HERLoopConfig, HostHERLoop
+
+    between = int(rl.get("num_steps_between_train_calls", 1000))
+    segment_steps = max(env.max_episode_steps * env.num_envs, between)
+    grad_per_step = (int(rl.get("num_train_steps_per_train_call", 1))
+                     / max(1, int(rl.get("num_steps_between_train_calls",
+                                         2))))
+    loop = HostHERLoop(
+        env, her,
+        HERLoopConfig(batch_size=int(rl.get("batch_size", 256)),
+                      num_episode_slots=num_episode_slots),
+        grad_steps_per_segment=max(1, int(segment_steps * grad_per_step)),
+        segment_steps=segment_steps, **relabel)
+    num_eval_episodes = max(1, int(rl.get("num_steps_per_eval", 1000))
+                            // env.max_episode_steps)
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 4000))
+    snap = SnapshotManager(logger.log_dir,
+                           gap=int(rl.get("freq_saving", 10)))
+    logger.log(f"trainer HER({type(her.inner).__name__}) on host env "
+               f"{env.name}: {her.inner.config}; {loop.config}, "
+               f"{loop.grad_steps_per_segment} steps a segment of "
+               f"{segment_steps}")
+    try:
+        runner = loop.warmup(
+            loop.init(seed),
+            min_steps=int(rl.get("min_steps_before_training", 0)) or None)
+        for epoch in range(int(rl.get("num_epochs", 50))):
+            t0 = time.time()
+            runner, metrics = loop.train_epoch(runner, steps_per_epoch)
+            eval_stats = loop.evaluate(runner, num_eval_episodes,
+                                       seed=seed + epoch + 1)
+            logger.record_dict(metrics, prefix="trainer/")
+            logger.record_dict(eval_stats)
+            logger.record_tabular("TotalEnvSteps", runner.total_env_steps)
+            logger.record_tabular("TrainTime", time.time() - t0)
+            logger.dump_tabular(epoch)
+            snap.on_epoch(epoch, runner, eval_stats)
+    finally:
+        env.close()
+    logger.close()
+    return runner
+
+
 def run_her(variant: Dict[str, Any], device=None):
-    """HER over SAC or TD3 (`inner_algo`) on a device goal env (reference
-    run_scripts/her_*_exp_script.py; the JAX `run_her`'s device branch,
+    """HER over SAC or TD3 (`inner_algo`) on a goal env (reference
+    run_scripts/her_*_exp_script.py; the JAX `run_her`,
     experiments.py:1519-1657): TD3 with the reference's target clip
     [-1 / (1 - discount), 0] and the Gaussian-and-epsilon explorer
     (`max_sigma` or `exploration_noise`, `epsilon`); the relabel knobs
     from `her_params` or `rl_alg_params`; the evaluation on the training
-    envs for the env's horizon.  A host goal env (the Fetch specs) raises
-    naming item 2.8, a set `load_params` ValueError (the JAX launcher
-    never reads it)."""
+    envs for the env's horizon.  A host goal env (the Fetch specs) goes
+    through `_run_host_her`.  A set `load_params` raises ValueError (the
+    JAX launcher never reads it)."""
     from ilswiss_tpu_torch.algorithms.her import HER, HERLoop, HERLoopConfig
 
     _refuse_resume(variant, "HER")
     device = resolve_device(device)
-    seed, vec, rl, logger = _on_device_vec(variant, "her", device)
-    env = vec.env
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "her")
+    if _route_host(variant, env_name):
+        from ilswiss_tpu_torch.envs.host_mujoco import HostGoalVectorEnv
+        kw = dict(env_kwargs)
+        vec, env = None, HostGoalVectorEnv(
+            env_name, num_envs=num_envs, seed=seed,
+            max_episode_steps=kw.pop("max_episode_steps", None),
+            env_kwargs=kw)
+    else:
+        vec = make_vec(env_name, num_envs=num_envs, device=device,
+                       **env_kwargs)
+        env = vec.env
     obs_size = env.observation_size + env.goal_size
     nets = _nets(variant)
     if str(variant.get("inner_algo", "sac")) == "td3":
@@ -1314,16 +1714,21 @@ def run_her(variant: Dict[str, Any], device=None):
         ), device=device, **nets)
     her = HER(inner)
     hp = _alg(variant, "her_params")
+    # the reference HER specs keep the relabel knobs in rl_alg_params
+    relabel = dict(
+        relabel_type=str(hp.get("relabel_type",
+                                rl.get("relabel_type", "future"))),
+        her_ratio=float(hp.get("her_ratio", rl.get("her_ratio", 0.8))))
+    if vec is None:
+        return _run_host_her(her, env, rl, logger, seed, relabel,
+                             int(hp.get("num_episode_slots", 1024)))
     loop = HERLoop(
         vec, her,
         HERLoopConfig(
             batch_size=int(rl.get("batch_size", 256)),
             num_episode_slots=int(hp.get("num_episode_slots", 1024)),
             grad_steps_per_iter=_grad_steps_per_iter(rl, vec.num_envs)),
-        # the reference HER specs keep the relabel knobs in rl_alg_params
-        relabel_type=str(hp.get("relabel_type",
-                                rl.get("relabel_type", "future"))),
-        her_ratio=float(hp.get("her_ratio", rl.get("her_ratio", 0.8))))
+        **relabel)
     steps_per_epoch = int(rl.get("num_steps_per_epoch", 4000))
     rl.setdefault("num_epochs", 50)
     evaluator = make_evaluator(
@@ -1343,8 +1748,9 @@ def run_gcsl(variant: Dict[str, Any], device=None):
     CLASS, lr, use_horizons, num_episode_slots), the one-hot's width the
     env's horizon, and with `env_specs.discretize` a `DiscretEnv` of
     `discret_kwargs` (granularity, possible_actions) under a CLASS-mode
-    policy.  A host env raises naming item 2.8, a set `load_params`
-    ValueError (the JAX launcher never reads it)."""
+    policy.  A set `load_params` raises ValueError (the JAX launcher never
+    reads it).  As in the JAX launcher, a host env name raises KeyError
+    (no device env of that name) and `force_host` is not read."""
     from ilswiss_tpu_torch.algorithms.gcsl import GCSL, GCSLConfig, GCSLLoop
     from ilswiss_tpu_torch.algorithms.her import HERLoopConfig
     from ilswiss_tpu_torch.envs.wrappers import DiscretEnv
@@ -1352,7 +1758,6 @@ def run_gcsl(variant: Dict[str, Any], device=None):
     _refuse_resume(variant, "GCSL")
     device = resolve_device(device)
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(variant, "gcsl")
-    _route_host(variant, env_name)
     env_specs = _alg(variant, "env_specs")
     env = make(env_name, device=device, **env_kwargs)
     if bool(env_specs.get("discretize", False)):

@@ -2,8 +2,9 @@
 when they hold the fused SAC chain (ops/fused_sac.py, kernel K2) against a
 reference: the pins of each mode of its products, the rule for its bf16
 mode against its plain version at full width, and a way to run the loop's
-fused chain in float32 mode; and the bit-equality of two checkpoint trees
-(`tree_diff`), which says that a resumed run is the uninterrupted one.
+fused chain in float32 mode; the bit-equality of two checkpoint trees
+(`tree_diff`), which says that a resumed run is the uninterrupted one; and
+`DeviceEnvAsHost`, a stand-in host env for machines without MuJoCo.
 
 Pins (`K2_PINS`, (rtol, atol) per group of the chain's output).  The
 float32 mode keeps those of tests/test_fused_sac.py:91-121.  The bf16 mode
@@ -46,9 +47,11 @@ from __future__ import annotations
 import contextlib
 import functools
 
+import numpy as np
 import torch
 
 from ilswiss_tpu_torch.ops.fused_sac import METRIC_NAMES
+from ilswiss_tpu_torch.runtime.loop import Noise
 
 _F32_PINS = {"params": (2e-4, 2e-5), "log_alpha": (1e-5, 1e-6),
              "mu": (2e-4, 2e-6), "nu": (2e-3, 1e-8), "metrics": (5e-4, 5e-5)}
@@ -137,3 +140,71 @@ def tree_diff(x, y, where: str = "") -> list[str]:
         return [d for i, (p, q) in enumerate(zip(x, y))
                 for d in tree_diff(p, q, f"{where}[{i}]")]
     return [] if x == y else [where]
+
+
+class DeviceEnvAsHost:
+    """One of the port's own device envs, built on the CPU, behind the
+    host vector envs' numpy contract (envs/host_mujoco.py): `reset(seed)`
+    and `step(actions) -> (obs_prev, true_next, reward, terminal, done,
+    obs_after)` on numpy arrays; a goal env (reach2d) also gives
+    `goal_size`, `compute_reward` and a seventh output, the success flag
+    (within `distance_threshold` of the goal), as `HostGoalVectorEnv`.
+    It lets the host loops' device half run where gymnasium and MuJoCo do
+    not (chip_smoke.py's phase 19, tests).  It is test support: no env
+    registry names it.  Its draws come from `Noise(seed, "cpu")`."""
+
+    def __init__(self, env_name: str, num_envs: int, seed: int = 0,
+                 max_episode_steps: int | None = None,
+                 env_kwargs: dict | None = None, **_):
+        from ilswiss_tpu_torch.envs import make_vec
+
+        kw = dict(env_kwargs or {})
+        if max_episode_steps is not None:
+            kw["max_episode_steps"] = max_episode_steps
+        self.vec = make_vec(env_name, num_envs, device="cpu", **kw)
+        env = self.vec.env
+        self.name = env_name
+        self.num_envs = num_envs
+        self.observation_size = env.observation_size
+        self.action_size = env.action_size
+        self.discrete = False
+        self.max_episode_steps = env.max_episode_steps
+        self.goal = hasattr(env, "goal_size")
+        if self.goal:
+            self.goal_size = env.goal_size
+            self.compute_reward = env.compute_reward
+        self._noise = Noise(seed, "cpu")
+        self._state = None
+
+    @staticmethod
+    def _np(obs):
+        if isinstance(obs, dict):
+            return {k: v.numpy().copy() for k, v in obs.items()}
+        return obs.numpy().copy()
+
+    def reset(self, seed: int | None = None):
+        if seed is not None:
+            self._noise = Noise(seed, "cpu")
+        self._state = self.vec.reset(
+            self._noise.reset(self.vec.env, self.num_envs))
+        return self._np(self._state.obs)
+
+    def step(self, normalized_actions):
+        obs_prev = self._np(self._state.obs)
+        self._state, tr = self.vec.step(
+            self._state, torch.as_tensor(np.asarray(normalized_actions,
+                                                    np.float32)),
+            self._noise.reset(self.vec.env, self.num_envs))
+        out = (obs_prev, self._np(tr.next_obs), tr.reward.numpy().copy(),
+               tr.terminal.numpy().copy(), tr.done.numpy().copy(),
+               self._np(self._state.obs))
+        if not self.goal:
+            return out
+        env = self.vec.env
+        success = env.compute_distance(tr.next_obs["achieved_goal"],
+                                       tr.next_obs["desired_goal"]) \
+            < env.distance_threshold
+        return out + (success.numpy().astype(np.float32),)
+
+    def close(self) -> None:
+        pass

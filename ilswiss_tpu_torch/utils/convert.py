@@ -45,6 +45,10 @@ maps:
     decoder), `cpc_opt` over (encoder, W), and `policy_opt`, `alpha_opt`;
     its step counter becomes an int.
 
+  * a JAX host runner's env-step count is a static field, an int on
+    both sides; its key has no counterpart: the port's runner draws from
+    a `Noise` and seeds its collector with the run's seed.
+
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
 """
@@ -79,6 +83,9 @@ from ilswiss_tpu_torch.models.policies import (
     GaussianPolicy, TanhGaussianPolicy,
 )
 from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
+from ilswiss_tpu_torch.runtime.host_loop import (
+    HostOnPolicyRunnerState, HostRunnerState,
+)
 from ilswiss_tpu_torch.runtime.onpolicy import (
     OnPolicyLoop, OnPolicyRunnerState,
 )
@@ -540,6 +547,33 @@ def onpolicy_runner_from_jax(loop: OnPolicyLoop, jrunner, noise
         algo_state=ppo_state_from_jax(loop.algo, jrunner.algo_state),
         total_env_steps=int(np.asarray(jrunner.total_env_steps)),
         obs_rms=running_mean_std_from_jax(jrunner.obs_rms, device))
+
+
+# --- the host loops' runners -----------------------------------------------
+def host_runner_from_jax(loop, jrunner, noise, seed: int = 0
+                         ) -> HostRunnerState:
+    """A HostRunnerState on `loop`'s device holding the JAX host runner's
+    ring, its SAC or AdvIRL state and its env-step count, drawing from
+    `noise`, its collector seeded with `seed`."""
+    algo = loop.algo
+    from_jax = (adv_irl_state_from_jax if isinstance(algo, AdvIRL)
+                else sac_state_from_jax)
+    return HostRunnerState(
+        noise=noise, replay=replay_from_jax(jrunner.replay, loop.device),
+        algo_state=from_jax(algo, jrunner.algo_state),
+        total_env_steps=int(jrunner.total_env_steps), seed=seed)
+
+
+def host_onpolicy_runner_from_jax(loop, jrunner, noise, seed: int = 0
+                                  ) -> HostOnPolicyRunnerState:
+    """A HostOnPolicyRunnerState holding the JAX host runner's PPO state,
+    moments and env-step count, drawing from `noise`, its collector seeded
+    with `seed`."""
+    return HostOnPolicyRunnerState(
+        noise=noise, algo_state=ppo_state_from_jax(loop.algo,
+                                                   jrunner.algo_state),
+        total_env_steps=int(jrunner.total_env_steps), seed=seed,
+        obs_rms=running_mean_std_from_jax(jrunner.obs_rms, loop.device))
 
 
 # --- MBPO: the ensemble model and the runner --------------------------------

@@ -564,17 +564,29 @@ def test_gail_pendulum_trains_and_resumes_bit_for_bit(tmp_path,
 
 
 def test_unported_parts_raise_naming_their_item(tmp_path, monkeypatch):
-    """The host envs (item 2.8) raise; the visual parts (item 2.7) are
-    ported: the cnn discriminator refuses vector observations, and
-    `feature_fn` takes the width of its features."""
+    """The host envs (item 2.8) and the visual parts (item 2.7) are
+    ported: a host env name goes to the host path with the host env's
+    sizes (+1 for the absorbing flag), the spec's update loops a train
+    call (not rescaled) and the demo stats for the host wrappers; the cnn
+    discriminator refuses vector observations, and `feature_fn` takes the
+    width of its features."""
     monkeypatch.chdir(ROOT)
     with pytest.raises(ValueError, match="image observations"):
         pexp.run_adv_irl(_gail_pendulum(tmp_path / "x", disc_type="cnn"),
                          device="cpu")
-    host = _gail_pendulum(tmp_path / "x")
+    host = _gail_pendulum(tmp_path / "x", scale_env_with_demo_stats=True)
     host["env_specs"]["env_name"] = "lunarlandercont"
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        pexp.run_adv_irl(host, device="cpu")
+    host["adv_irl_params"].update(wrap_absorbing=True,
+                                  num_update_loops_per_train_call=3)
+    seen = {}
+    monkeypatch.setattr(pexp, "_run_host_off_policy",
+                        lambda algo, *a, **kw: seen.update(algo=algo, kw=kw))
+    pexp.run_adv_irl(host, device="cpu")
+    algo = seen["algo"]
+    assert (algo.obs_size, algo.action_size) == (8 + 1, 2)
+    assert algo.config.num_update_loops_per_train_call == 3
+    assert seen["kw"]["wrap_absorbing"] is True
+    assert set(seen["kw"]["demo_stats"]) >= {"obs_mean", "obs_std"}
     sac = SAC(OBS, ACT, net_size=NET, num_hidden_layers=2, device="cpu")
     with pytest.raises(ValueError, match="feature_dim"):
         AdvIRL(OBS, ACT, sac, None, feature_fn=lambda s, o: o)

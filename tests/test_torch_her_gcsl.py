@@ -739,13 +739,36 @@ def test_run_her_td3_inner_takes_the_reference_bounds(tmp_path):
         in log
 
 
-def test_host_goal_env_raises_naming_item_2_8(tmp_path):
+def test_host_goal_env_raises_naming_item_2_8(tmp_path, monkeypatch):
+    """Item 2.8 is ported: her_reach_td3.yaml takes the host path with
+    FetchReach-v4, the spec's relabeling and the reference's TD3; GCSL,
+    which the JAX launcher never routes, reads no `force_host` and builds
+    a device env, so a host env name raises KeyError there as in JAX."""
     spec = yaml.safe_load((ROOT / "exp_specs" / "her" /
                            "her_reach_td3.yaml").read_text())
     v = dict(spec["constants"], seed=0, log_dir=str(tmp_path / "h"),
              print_to_console=False)
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        pexp.run_her(v, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        pexp.run_gcsl(dict(v, env_specs={"env_name": "reach2d",
-                                         "force_host": True}), device="cpu")
+    seen = {}
+
+    def host_her(her, env, rl, logger, seed, relabel, slots):
+        seen.update(her=her, env=env, relabel=relabel, slots=slots)
+        env.close()
+
+    monkeypatch.setattr(pexp, "_run_host_her", host_her)
+    pexp.run_her(v, device="cpu")
+    env, inner = seen["env"], seen["her"].inner
+    assert type(env).__name__ == "HostGoalVectorEnv"
+    assert env.envs[0].spec.id == "FetchReach-v4"
+    assert (env.num_envs, env.max_episode_steps) == (8, 50)
+    assert seen["relabel"] == {"relabel_type": "future", "her_ratio": 0.8}
+    assert seen["slots"] == 2048
+    assert inner.config.q_target_min == pytest.approx(-100.0)
+    assert inner.config.exploration_epsilon == 0.3
+    ran = {}
+    monkeypatch.setattr(pexp, "_run_epochs",
+                        lambda *a, **k: ran.setdefault("ran", True))
+    pexp.run_gcsl(dict(v, env_specs={"env_name": "reach2d",
+                                     "force_host": True}), device="cpu")
+    assert ran == {"ran": True}
+    with pytest.raises(KeyError, match="Unknown env"):
+        pexp.run_gcsl(v, device="cpu")

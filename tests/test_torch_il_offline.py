@@ -772,14 +772,16 @@ def test_load_params_is_refused(tmp_path, name):
 
 
 def test_unported_gen_expert_branches_name_their_items(tmp_path):
-    """The DMC pixel branch renders on the host (envs/host_dmc.py), so it
-    goes with the other host bridges, item 2.8."""
+    """The DMC pixel branch renders on the host (envs/host_dmc.py), the
+    half of item 2.8 not ported yet; the gymnasium branch is ported, and
+    asks, as the JAX one, for a scripted expert that exists."""
     base = {"seed": 0, "log_dir": str(tmp_path / "log"),
             "print_to_console": False, "use_scripted_policy": True}
     with pytest.raises(NotImplementedError, match="item 2.8"):
         pexp.run_gen_expert(dict(base, env_specs={"env_name": "dmc"}),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.8"):
+    with pytest.raises(KeyError, match="no scripted expert for "
+                                       "'lunarlandercont'"):
         pexp.run_gen_expert(dict(base, env_specs={"env_name": "lunarlandercont"}),
                             device="cpu")
 

@@ -196,12 +196,22 @@ def _variant(tmp_path, env="pendulum", **extra):
 
 def test_routing_raises_naming_the_roadmap_item(tmp_path):
     run = pexp.run_sac
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        run(_variant(tmp_path, "lunarlandercont"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        run(_variant(tmp_path, env_specs={"env_name": "hopper",
-                                          "force_host": True}),
-            device="cpu")
+    # the host env paths are ported: one spec of each kind through
+    # `_route_host`, as the JAX launcher routes it (the device registry
+    # first, then force_host, the reference names and gymnasium ids)
+    for name, extra, host in (("hopper", {}, False),
+                              ("hopper", {"force_host": True}, True),
+                              ("lunarlandercont", {}, True),
+                              ("fetch-reach", {}, True),
+                              ("Hopper-v5", {}, True),
+                              ("reach2d", {}, False)):
+        v = _variant(tmp_path, env_specs={"env_name": name, **extra})
+        assert pexp._route_host(v, name) is host, name
+        assert jexp._route_host(v, name) is host, name
+    # a launcher the JAX package never routes builds a device env, which
+    # has no host name
+    with pytest.raises(KeyError, match="Unknown env"):
+        pexp.run_sac_v(_variant(tmp_path, "lunarlandercont"), device="cpu")
     # the DMC pixel envs and gen_expert's DMC branch render on the host
     for name in ("sac_ae", "sac_rad", "sac_curl", "gen_expert"):
         with pytest.raises(NotImplementedError, match="item 2.8"):

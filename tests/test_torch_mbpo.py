@@ -501,12 +501,21 @@ def test_fault_run_mbpo_refuses_load_params(tmp_path):
 
 def test_run_mbpo_raises_for_the_host_path(tmp_path):
     """The JAX launcher sends a host env to `HostMBPOLoop` (ROADMAP.md
-    section 1 item 2.8); the port raises naming that item, before any
-    model is built."""
+    section 1 item 2.8), and so does the port now: the cut spec with
+    `force_host` on hopper runs its epoch on the host MuJoCo env, with
+    the learner's model and rings on the CPU."""
     v = _tiny_mbpo(tmp_path / "h")
-    v["env_specs"] = dict(v["env_specs"], force_host=True)
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        pexp.run_mbpo(v, device="cpu")
+    v["env_specs"] = dict(v["env_specs"], env_name="hopper",
+                          force_host=True)
+    v["rl_alg_params"].update(max_path_length=10, num_steps_per_eval=20)
+    runner = pexp.run_mbpo(v, device="cpu")
+    assert runner.env_state is None
+    with open(tmp_path / "h" / "progress.csv") as f:
+        (row,) = list(csv.DictReader(f))
+    assert float(row["TotalEnvSteps"]) == runner.total_env_steps == \
+        runner.replay.size
+    assert all(math.isfinite(float(x)) for x in row.values())
+    assert "trainer/bnn_holdout_mse" in row and "AverageReturn" in row
 
 
 SPECS = sorted(p.name for p in (ROOT / "exp_specs" / "mbpo").glob("*.yaml"))
