@@ -155,9 +155,9 @@ exits non-zero on any failure; no phase catches its own error.
  14. the rnn discriminator through the launcher: exp_specs/gail/
      gail_hopper.yaml copied under build/chip_smoke_gail_rnn/ with
      `disc_type: rnn` (T = 16, a 2-layer bidirectional GRU of width 128)
-     and num_epochs 2, num_steps_per_epoch 40 (5 iterations an epoch).
+     and num_epochs 2, num_steps_per_epoch 24 (3 iterations an epoch).
      Run A: 2 epochs; run B: 1 epoch, then a full resume.  Launch counts
-     exact (K1 2635 / 1630 / 1005; K2 = K3 = K4 = 0), B's end state equal
+     exact (K1 2631 / 1628 / 1003; K2 = K3 = K4 = 0), B's end state equal
      to A's bit for bit, every metric finite (gail2 rewards <= 0); K1 at
      B = 8 and 32 on run A's end states against its plain version; one rnn
      discriminator step on the card against the same step on a CPU copy,
@@ -195,18 +195,18 @@ exits non-zero on any failure; no phase catches its own error.
      version; a BC step's and a DAgger iteration's wall ms, device
      operations and device ms;
  17. goal-conditioned learning on reach2d: her_sac_reach2d.yaml,
-     gcsl_reach2d.yaml and gcsl_reach_dis.yaml, 1 epoch of 2000 steps
+     gcsl_reach2d.yaml and gcsl_reach_dis.yaml, 1 epoch of 1000 steps
      each, under build/chip_smoke_goal/: no kernel launch, every value
-     finite, TotalEnvSteps 16 x 225, a batch sampled from each run's hindsight
+     finite, TotalEnvSteps 16 x 162, a batch sampled from each run's hindsight
      ring equal to the same draws on a CPU copy of it, exactly; an
      iteration's and an inner step's wall ms, device operations and
      device ms;
  18. the visual path: exp_specs/sac_ae/, sac_rad/ and sac_curl/
      *_pendulum_pixels.yaml through `EXPERIMENTS` cut in length only (1
-     epoch of 800 steps after the spec's 1000-step warmup; 16 envs of 64
+     epoch of 400 steps after the spec's 1000-step warmup; 16 envs of 64
      px, K = 8 at batch 128, the 100,000-row ring, bf16 convs, crop 56 for
      RAD and CURL), under build/chip_smoke_visual/ (each run's logs deleted
-     once read): no kernel launch, every value finite, TotalEnvSteps 1792,
+     once read): no kernel launch, every value finite, TotalEnvSteps 1392,
      one SAC-AE step on the card against a CPU copy (16 rows of a batch,
      float32 convs, rtol 2e-4, atol 1e-4); an even and an odd SAC-AE
      step's and an iteration's wall ms, device operations and device ms,
@@ -232,7 +232,24 @@ exits non-zero on any failure; no phase catches its own error.
      any run, every value finite; a segment's collection and a train
      call's wall ms, a 20-step call's device operations and device ms,
      TrainTime overlapped and serial, and a 4-step train call on the card
-     against a CPU copy at phase 18's pins.
+     against a CPU copy at phase 18's pins;
+ 20. data parallelism over torch.distributed (`data_parallel_phase`), one
+     process a rank, spawned and joined with a deadline (a rank that
+     fails or hangs fails the script): (a) nccl with one rank per card
+     (a world of one under one card): `DistributedOffPolicyRunner` with
+     SAC on hopper at sac_hopper_optable.yaml's widths, its 5000-step
+     warmup and 2 epochs of 25 iterations a rank: K1 once a control step
+     on every rank, K2 (refused under a group), K3 and K4 never, every
+     metric finite, the parameters equal across ranks (rtol = atol =
+     1e-6), K1 on each rank's end states against its plain version; (b) 2
+     ranks on the one card over gloo with CUDA tensors: the same SAC
+     runner and `DistributedOnPolicyRunner` with PPO at ppo_hopper.yaml's
+     widths (cut in length), from identical data equal to the one-rank
+     run (rtol 1e-5, atol 1e-6), from distinct data the replicas equal and
+     away from it; the world size and backend, an iteration's wall ms, the
+     collectives' ms per SAC step (CUDA events) and a step's device
+     operations.  `python3 chip_smoke.py --phase20 [nccl]` runs phases 1,
+     2 and 20 alone (with "nccl", (a) only), for a call on four cards.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -1399,8 +1416,8 @@ def ppo_phase(card: str, counters: dict, k1_check) -> dict:
 # Phase 14: the rnn discriminator through the launcher: GAIL_SPEC with
 # disc_type rnn (the JAX defaults: T = 16, gru, 2 layers, bidirectional),
 # cut in length further than phase 10 (see rnn_gail_phase)
-RNN_GAIL_CUT = {"num_epochs": 2, "num_steps_per_epoch": 40}
-RNN_GAIL_K1 = [2635, 1630, 1005]     # runs A, B, B's resume
+RNN_GAIL_CUT = {"num_epochs": 2, "num_steps_per_epoch": 24}
+RNN_GAIL_K1 = [2631, 1628, 1003]     # runs A, B, B's resume
 
 
 class ReplayedDraws:
@@ -1468,14 +1485,14 @@ def compare_trees(what: str, got, want, rtol: float, atol: float) -> float:
 def rnn_gail_phase(card: str, counters: dict, k1_check) -> dict:
     """Phase 14: a copy of GAIL_SPEC under build/chip_smoke_gail_rnn/ with
     `disc_type: rnn` and RNN_GAIL_CUT (num_epochs 162 -> 2,
-    num_steps_per_epoch 10000 -> 40: 5 iterations of 8 discriminator and
+    num_steps_per_epoch 10000 -> 24: 3 iterations of 8 discriminator and
     8 SAC steps an epoch, shorter than phase 10's 50: an rnn iteration
-    takes about 2 s, and the phase stays near a minute), through
+    takes about 2 s, and the phase stays under a minute), through
     `EXPERIMENTS["adv_irl"]` on the card:
     the spec's widths (SAC 256 x 2, batch 256, 8 envs, a 20k ring) with
     a 2-layer bidirectional GRU discriminator of width 128 over windows of
     16 steps (16 windows a step).  Run A: 2 epochs; run B: 1 epoch, then
-    a full resume (`straight_and_resumed`: K1 2635 / 1630 / 1005, K2 =
+    a full resume (`straight_and_resumed`: K1 2631 / 1628 / 1003, K2 =
     K3 = K4 = 0, B bit-equal to A, every metric finite, gail2 rewards
     <= 0).  K1 at B = 8 and 32 on run A's end states against its plain
     version (phase 3's check).  One rnn `_disc_update` from run B's
@@ -2206,7 +2223,7 @@ def imitation_phase(card: str, counters: dict, k1_check) -> dict:
 
 # Phase 17: goal-conditioned learning on reach2d, 1 epoch of each spec
 # 2000 of the specs' 4000 steps an epoch
-GOAL_STEPS = 2000
+GOAL_STEPS = 1000
 GOAL_SPECS = {"her_sac": ("her", "exp_specs/her/her_sac_reach2d.yaml"),
               "gcsl": ("gcsl", "exp_specs/gcsl/gcsl_reach2d.yaml"),
               "gcsl_dis": ("gcsl", "exp_specs/gcsl/gcsl_reach_dis.yaml")}
@@ -2217,9 +2234,9 @@ def goal_phase(card: str, counters: dict) -> dict:
     gcsl_reach_dis.yaml through `EXPERIMENTS["her"]` / `["gcsl"]` on the
     card, 1 epoch each (the specs' 20, cut) of GOAL_STEPS steps, logs
     under build/chip_smoke_goal/: 16 envs, 512 episode slots, batch 128,
-    K = 8, a warmup of 2 x 50 iterations and 125 training iterations.
+    K = 8, a warmup of 2 x 50 iterations and 62 training iterations.
     reach2d is analytic: no kernel may launch.  Fails unless every
-    progress.csv value is finite with TotalEnvSteps 16 x 225, and a batch
+    progress.csv value is finite with TotalEnvSteps 16 x 162, and a batch
     sampled from the run's hindsight ring on the card holds the same rows
     as the same draws give on a CPU copy of the ring, exactly.  Times an HER iteration
     (one env step, 8 SAC steps), an HER SAC step and a GCSL step (wall,
@@ -2330,7 +2347,7 @@ VISUAL_SPECS = {
     "sac_curl": ("sac_curl",
                  "exp_specs/sac_curl/sac_curl_pendulum_pixels.yaml")}
 # 800 of the specs' 4000 steps an epoch
-VISUAL_CUT = {"num_epochs": 1, "num_steps_per_epoch": 800}
+VISUAL_CUT = {"num_epochs": 1, "num_steps_per_epoch": 400}
 VISUAL_METRICS = {
     "sac_ae": ["qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
                "rec_loss", "latent_loss"],
@@ -2372,14 +2389,14 @@ def timed_snapshots():
 def visual_phase(card: str, counters: dict) -> dict:
     """Phase 18: the visual path.  sac_ae_pendulum_pixels.yaml,
     sac_rad_pendulum_pixels.yaml and sac_curl_pendulum_pixels.yaml through
-    `EXPERIMENTS[...]` on the card, cut in length only (1 epoch of 800
+    `EXPERIMENTS[...]` on the card, cut in length only (1 epoch of 400
     steps after the spec's 1000-step warmup), logs under
     build/chip_smoke_visual/: 16 envs of 64 px frames, K = 8 SAC-AE steps
     an iteration at batch 128, the spec's 100,000-row float32 ring, a 4 x
     32 conv encoder of 50 features in bf16, a 256 x 2 SAC, crop 56 for RAD
     and CURL.  The path is analytic and eager: no kernel may launch.
     Fails unless every progress.csv value is finite, TotalEnvSteps is 62
-    x 16 + 800 and the state took 400 steps, and one SAC-AE step (both
+    x 16 + 400 and the state took 200 steps, and one SAC-AE step (both
     phases of an even step, on 16 rows of a batch) on the card agrees with
     the same step on a CPU copy of the end state, float32 convs on both,
     at rtol 2e-4, atol 1e-4.
@@ -2986,8 +3003,491 @@ def host_phase(card: str, counters: dict) -> dict:
     return result
 
 
+DP_DIR = "build/chip_smoke_dp"
+DP_JOIN_S = 400.0         # a rank that outlives it fails the phase
+# (a): the spec's warmup (5000 steps, 625 iterations of 8 envs), then 2
+# epochs of DP_EPOCH_ITERS iterations a rank
+DP_EPOCH_ITERS = 25
+# (b): each run cut in length to a warmup of DP_CHECK_WARMUP steps and
+# one epoch of DP_CHECK_ITERS iterations a rank; PPO's rollout and passes
+DP_CHECK_WARMUP = 512
+DP_CHECK_ITERS = 16
+DP_PPO_CUT = {"rollout_length": 32, "update_epoch": 2}
+DP_PPO_SPEC = "exp_specs/ppo/ppo_hopper.yaml"
+DP_PROFILE_STEPS = 20     # steps timed for an all-reduce's ms and a step
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_counters() -> dict:
+    from ilswiss_tpu_torch.ops import fused_mlp, fused_sac, pgs
+    from ilswiss_tpu_torch.ops import planar_dynamics as pd
+    return {"planar_control_step": pd.planar_control_step,
+            "planar_forward": pd.planar_forward,
+            "fused_sac_chain": fused_sac.fused_sac_chain,
+            "fused_policy_forward": fused_mlp.fused_gaussian_policy_forward,
+            "pgs_solve": pgs.pgs_solve}
+
+
+def dp_sac_loop(device, min_steps: int, group=None):
+    """SAC on hopper at sac_hopper_optable.yaml's widths (the launcher's
+    reading of its sac_params and rl_alg_params: 8 envs a rank, 256 x 2,
+    batch 512, K = 8, a 1M ring a rank, the fused chain asked for), the
+    trainer averaging over `group` when one is given; `min_steps` the
+    warmup."""
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.envs import make_vec
+    from ilswiss_tpu_torch.launchers.experiments import _grad_steps_per_iter
+    from ilswiss_tpu_torch.runtime.loop import OffPolicyConfig, OffPolicyLoop
+
+    v = spec_variant(LAUNCHER_SPEC)
+    rl, p = v["rl_alg_params"], v["sac_params"]
+    vec = make_vec(v["env_specs"]["env_name"], v["env_specs"]["env_num"],
+                   device=device)
+    sac = SAC(vec.env.observation_size, vec.env.action_size, SACConfig(
+        discount=p["discount"], reward_scale=p["reward_scale"],
+        soft_target_tau=p["soft_target_tau"], policy_lr=p["policy_lr"],
+        qf_lr=p["qf_lr"]), net_size=v["net_size"],
+        num_hidden_layers=v["num_hidden_layers"],
+        use_fused_chain=p["use_fused_chain"], device=device, group=group)
+    return OffPolicyLoop(vec, sac, OffPolicyConfig(
+        batch_size=rl["batch_size"],
+        replay_capacity=rl["replay_buffer_size"],
+        min_steps_before_training=min_steps,
+        grad_steps_per_iter=_grad_steps_per_iter(rl, vec.num_envs)))
+
+
+def dp_ppo_loop(device, group=None, normalize_obs: bool | None = None):
+    """PPO on hopper at ppo_hopper.yaml's widths (16 envs a rank, 256 x 2,
+    minibatch 64, the spec's obs_norm unless `normalize_obs` names it), cut
+    in length by DP_PPO_CUT."""
+    from ilswiss_tpu_torch.algorithms.ppo import PPO, PPOConfig
+    from ilswiss_tpu_torch.envs import make_vec
+    from ilswiss_tpu_torch.runtime.onpolicy import (
+        OnPolicyConfig, OnPolicyLoop,
+    )
+
+    v = spec_variant(DP_PPO_SPEC)
+    p = {**v["ppo_params"], **DP_PPO_CUT}
+    vec = make_vec(v["env_specs"]["env_name"], v["env_specs"]["env_num"],
+                   device=device)
+    ppo = PPO(vec.env.observation_size, vec.env.action_size, PPOConfig(
+        discount=p["discount"], reward_scale=p["reward_scale"],
+        gae_tau=p["gae_tau"], clip_eps=p["clip_eps"],
+        policy_lr=p["policy_lr"], value_lr=p["value_lr"],
+        value_l2_reg=p["value_l2_reg"], update_epoch=p["update_epoch"],
+        mini_batch_size=p["mini_batch_size"]), net_size=v["net_size"],
+        num_hidden_layers=v["num_hidden_layers"], device=device,
+        group=group)
+    if normalize_obs is None:
+        normalize_obs = bool(v["env_specs"]["obs_norm"])
+    return OnPolicyLoop(vec, ppo, OnPolicyConfig(
+        rollout_length=p["rollout_length"], normalize_obs=normalize_obs))
+
+
+def flat_params(state, obs_rms=None) -> "torch.Tensor":
+    """The policy's and the critics' (PPO: the value net's) parameters,
+    and the observation moments where there are some, in one vector."""
+    import torch
+    nets = [state.policy, getattr(state, "qf", None) or state.vf]
+    moments = [] if obs_rms is None else [obs_rms.mean, obs_rms.var]
+    return torch.cat([p.detach().reshape(-1) for n in nets
+                      for p in n.parameters()] + moments)
+
+
+def replica_spread(flat, group) -> tuple:
+    """This rank's vector against every rank's (an all-gather: on the card
+    over nccl, on the host over gloo): the largest |difference| and
+    whether all are within rtol = atol = 1e-6 of this one."""
+    import torch
+    import torch.distributed as dist
+    x = flat.cpu() if group.backend == "gloo" else flat
+    parts = [torch.empty_like(x) for _ in range(group.world_size)]
+    dist.all_gather(parts, x, group=group.process_group)
+    return (max(float((p - x).abs().max()) for p in parts),
+            all(torch.allclose(p, x, rtol=1e-6, atol=1e-6) for p in parts))
+
+
+def dp_allreduce_ms(state, group) -> tuple:
+    """CUDA events around the collectives of one SAC step, as
+    `train_step` issues them (`all_reduce_mean` of the critics', the
+    policy's and log alpha's gradients, one buffer each), over
+    DP_PROFILE_STEPS steps: ms per step.  In a world of one
+    `all_reduce_mean` issues nothing, so the raw `all_reduce` of the same
+    three buffers is timed beside it."""
+    import torch
+    import torch.distributed as dist
+    from ilswiss_tpu_torch.parallel.distributed import all_reduce_mean
+
+    groups = [list(state.qf.parameters()), list(state.policy.parameters()),
+              [state.log_alpha]]
+    grads = [[torch.randn_like(p) for p in g] for g in groups]
+    bufs = [torch.cat([g.reshape(-1) for g in gs]) for gs in grads]
+
+    def timed(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(DP_PROFILE_STEPS):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / DP_PROFILE_STEPS
+
+    mean_ms = timed(lambda: [all_reduce_mean(g, group) for g in grads])
+    raw_ms = timed(lambda: [dist.all_reduce(b, group=group.process_group)
+                            for b in bufs])
+    return mean_ms, raw_ms, [b.numel() for b in bufs]
+
+
+def dp_sac_nccl(group, out: dict) -> None:
+    """Phase 20 (a) on one rank: warmup and 2 epochs of
+    `DistributedOffPolicyRunner`, launches counted, metrics finite, the
+    replicas equal; then K1 on the end states against its plain version,
+    the iteration's wall ms, the collectives' ms and a step's device
+    operations."""
+    import torch
+    from ilswiss_tpu_torch.envs.locomotion import HopperDevice, _model
+    from ilswiss_tpu_torch.ops import planar_dynamics as pd
+    from ilswiss_tpu_torch.parallel import distributed as dd
+
+    v = spec_variant(LAUNCHER_SPEC)
+    loop = dp_sac_loop(group.device,
+                       v["rl_alg_params"]["min_steps_before_training"], group)
+    b = loop.vec_env.num_envs
+    factory = dd.DistributedOffPolicyRunner(loop, group)
+    warmup, epoch = factory.build(group.world_size * b * DP_EPOCH_ITERS)
+    runner = factory.init(0)
+    counters = dp_counters()
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    calls = dd.all_reduce_mean.calls
+    t0 = time.perf_counter()
+    runner = warmup(runner)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = []
+    for _ in range(2):
+        runner, m = epoch(runner)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["launches"] = {n: k.launches for n, k in counters.items()}
+    out["collectives"] = dd.all_reduce_mean.calls - calls
+    warm_iters = max(1, loop.config.min_steps_before_training // b)
+    out["want"] = {"planar_control_step": warm_iters + 2 * DP_EPOCH_ITERS,
+                   "planar_forward": 0, "fused_sac_chain": 0,
+                   "fused_policy_forward": 0, "pgs_solve": 0}
+    out["metrics"] = metrics
+    out["iteration_ms"] = 1e3 * (t2 - t1) / (2 * DP_EPOCH_ITERS)
+    out["warmup_s"] = t1 - t0
+    out["total_env_steps"] = runner.total_env_steps
+    out["policy_steps"] = runner.algo_state.policy_opt.count
+    out["spread"], out["replicas_close"] = replica_spread(
+        flat_params(runner.algo_state), group)
+    out["bit_equal"] = out["spread"] == 0.0
+    out["obs_finite"] = bool(torch.isfinite(runner.env_state.obs).all())
+
+    # K1 on this rank's end states against its plain version
+    pm = pd.planar_model(_model("hopper"))
+    q, qd, f0 = (x.t().contiguous() for x in runner.env_state.internal)
+    gen = torch.Generator(device=group.device).manual_seed(20 + group.rank)
+    ctrl = 2 * torch.rand((len(pm.act_dof), b), device=group.device,
+                          generator=gen) - 1
+    iters = HopperDevice.solver_iters
+    got = pd.planar_control_step(pm, q, qd, ctrl, f0, iters)
+    want = pd._control_step(pm, lambda q, qd, c, f, damped: pd._forward_math(
+        pm, q, qd, c, f, iters, pm.timestep if damped else None),
+        q, qd, ctrl, f0)
+    flat = lambda s: [s[0], s[1], s[2], s[3], s[4][0], s[4][1]]  # noqa
+    err = 0.0
+    for g, w in zip(flat(got), flat(want)):
+        if not torch.allclose(g, w, rtol=2e-4, atol=5e-3):
+            fail(f"data parallel rank {group.rank}: K1 on the end states "
+                 f"differs from its plain version by "
+                 f"{float((g - w).abs().max()):.3g}")
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+    out["k1_err"] = err
+
+    out["allreduce_ms"], out["raw_allreduce_ms"], out["grad_numels"] = \
+        dp_allreduce_ms(runner.algo_state, group)
+    wall, ops, dev_ms = train_step_costs(loop.algo, runner,
+                                         loop.config.batch_size, 7)
+    out["step"] = {"wall_ms": wall, "operations": ops, "device_ms": dev_ms}
+
+
+def dp_checks(group, out: dict) -> None:
+    """Phase 20 (b) on one rank of 2 on one card over gloo: SAC and PPO
+    each (1) from the one-rank runner's envs and draws on every rank
+    against the one-rank run, (2) from this rank's own envs: the replicas
+    equal and away from the one-rank run; SAC's launches counted on (2);
+    then the collectives' ms and a step's device operations."""
+    import torch
+    from ilswiss_tpu_torch.parallel import distributed as dd
+
+    counters = dp_counters()
+    dev = group.device
+    for kind in ("sac", "ppo"):
+        if kind == "sac":
+            plain_loop = dp_sac_loop(dev, DP_CHECK_WARMUP)
+            plain_loop.algo.use_fused_chain = False   # the eager steps
+            loop = same_loop = dp_sac_loop(dev, DP_CHECK_WARMUP, group)
+            runner_cls = dd.DistributedOffPolicyRunner
+            steps = loop.vec_env.num_envs * DP_CHECK_ITERS
+        else:
+            # identical data without the moments: their merge counts a
+            # batch once per rank (JAX's rule), which moves the first
+            # update away from the one-rank run's where the moments' prior
+            # (count 1e-4, variance 1) outweighs a dimension's small batch
+            # variance; distinct data with the spec's obs_norm
+            plain_loop = dp_ppo_loop(dev, normalize_obs=False)
+            same_loop = dp_ppo_loop(dev, group, normalize_obs=False)
+            loop = dp_ppo_loop(dev, group)
+            runner_cls = dd.DistributedOnPolicyRunner
+            steps = loop.vec_env.num_envs * loop.config.rollout_length
+        factory = runner_cls(loop, group)
+        warmup, epoch = factory.build(group.world_size * steps)
+        same_warmup, same_epoch = runner_cls(same_loop, group).build(
+            group.world_size * steps)
+        plain = plain_loop.warmup(plain_loop.init(0))
+        plain, plain_m = plain_loop.train_epoch(plain, steps)
+        same, same_m = same_epoch(same_warmup(same_loop.init(0)))
+        torch.cuda.synchronize()
+        for k in counters.values():
+            k.launches = 0
+        calls = dd.all_reduce_mean.calls
+        distinct, distinct_m = epoch(warmup(factory.init(0)))
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in counters.items()}
+        want = flat_params(plain.algo_state)
+        got = flat_params(same.algo_state)
+        away = flat_params(distinct.algo_state)
+        replicas = flat_params(distinct.algo_state,
+                               getattr(distinct, "obs_rms", None))
+        spread, close = replica_spread(replicas, group)
+        out[kind] = {
+            "launches": launches,
+            "collectives": dd.all_reduce_mean.calls - calls,
+            "same_err": float((got - want).abs().max()),
+            "same_close": bool(torch.allclose(got, want, rtol=1e-5,
+                                              atol=1e-6)),
+            "same_bit_equal": bool(torch.equal(got, want)),
+            "metrics_err": max(abs(same_m[k] - plain_m[k]) for k in plain_m),
+            "spread": spread, "replicas_close": close,
+            "away": float((away - want).abs().max()),
+            "metrics": distinct_m,
+            "warmup_iters": (max(1, DP_CHECK_WARMUP // loop.vec_env.num_envs)
+                             if kind == "sac" else 0),
+            "iters": DP_CHECK_ITERS if kind == "sac" else 1,
+        }
+        if kind == "sac":
+            sac_runner, sac_loop = distinct, loop
+    out["allreduce_ms"], out["raw_allreduce_ms"], out["grad_numels"] = \
+        dp_allreduce_ms(sac_runner.algo_state, group)
+    wall, ops, dev_ms = train_step_costs(sac_loop.algo, sac_runner,
+                                         sac_loop.config.batch_size, 7)
+    out["step"] = {"wall_ms": wall, "operations": ops, "device_ms": dev_ms}
+
+
+def dp_rank(rank: int, world_size: int, job: dict) -> None:
+    """One rank of phase 20, in a process of its own (spawned by
+    `spawn_ranks`): it joins the group the job names, runs its part and
+    writes what it measured to <out>/<what>_rank<r>.json.  A failed check
+    exits non-zero (`fail`), which fails the phase."""
+    import torch
+
+    from ilswiss_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = mesh.init_group(rank, world_size, backend=job["backend"],
+                            init_method=job["init"], device=job["device"],
+                            timeout=DP_JOIN_S)
+    out = {"rank": rank, "world_size": world_size, "backend": group.backend,
+           "device": str(group.device)}
+    if job["what"] == "nccl":
+        dp_sac_nccl(group, out)
+    else:
+        dp_checks(group, out)
+    with open(Path(job["out"]) / f"{job['what']}_rank{rank}.json",
+              "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def data_parallel_phase(card: str, only_nccl: bool = False) -> dict:
+    """Phase 20: data parallelism over torch.distributed, one process a
+    rank (`spawn_ranks`, joined within DP_JOIN_S; a rank that fails or
+    hangs fails the phase):
+      (a) nccl, one rank per card (world = torch.cuda.device_count()):
+          `DistributedOffPolicyRunner` with SAC on hopper at
+          sac_hopper_optable.yaml's widths (8 envs a rank, 256 x 2, batch
+          512, K = 8, a 1M ring a rank), the spec's 5000-step warmup and 2
+          epochs of DP_EPOCH_ITERS iterations a rank: K1 once a control
+          step on every rank, K2 (the fused chain the spec asks for is
+          refused under a group), K3 and K4 never; every metric finite;
+          the policy and critics equal across ranks (rtol = atol = 1e-6,
+          JAX's test_params_stay_replicated; bit-equal reported); K1 on
+          each rank's end states against its plain version;
+      (b) 2 ranks on the one card over gloo with CUDA tensors (named):
+          the same SAC runner (cut to DP_CHECK_WARMUP steps of warmup and
+          DP_CHECK_ITERS iterations) and `DistributedOnPolicyRunner` with
+          PPO at ppo_hopper.yaml's widths (cut by DP_PPO_CUT), each run
+          from the one-rank runner's envs and draws on both ranks (equal
+          to the one-rank run at JAX's identical-data pins, rtol 1e-5,
+          atol 1e-6) and from each rank's own envs (replicas equal, away
+          from the one-rank run).
+    Prints the world size and backend, an iteration's wall ms, the
+    collectives' ms per SAC step (CUDA events), a step's device
+    operations.  Returns the launches per rank."""
+    import torch
+
+    from ilswiss_tpu_torch.parallel.mesh import spawn_ranks
+
+    out = ROOT / DP_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.json"):
+        f.unlink()
+    world = torch.cuda.device_count()
+    jobs = [("nccl", world, {"backend": None, "device": None})]
+    if not only_nccl:
+        jobs.append(("gloo", 2, {"backend": "gloo", "device": "cuda:0"}))
+    result = {"launches": {}}
+    for what, n, kw in jobs:
+        t0 = time.perf_counter()
+        spawn_ranks(dp_rank, n, ({
+            "what": what, "out": str(out),
+            "init": f"tcp://localhost:{free_port()}", **kw},),
+            timeout=DP_JOIN_S)
+        ranks = []
+        for r in range(n):
+            with open(out / f"{what}_rank{r}.json") as f:
+                ranks.append(json.load(f))
+        print(f"data parallel ({what}): world {n}, backend "
+              f"{ranks[0]['backend']}, devices "
+              f"{[x['device'] for x in ranks]}; {time.perf_counter() - t0:.1f}"
+              f" s with the ranks' start")
+        if what == "nccl":
+            dp_check_nccl(ranks, card)
+            for x in ranks:
+                result["launches"][f"dp_nccl_rank{x['rank']}"] = \
+                    x["launches"]
+            result["nccl"] = ranks
+        else:
+            dp_check_gloo(ranks, card)
+            for x in ranks:
+                result["launches"][f"dp_gloo_rank{x['rank']}"] = \
+                    x["sac"]["launches"]
+            result["gloo"] = ranks
+    return result
+
+
+def dp_check_nccl(ranks: list, card: str) -> None:
+    for x in ranks:
+        what = f"data parallel (nccl) rank {x['rank']}"
+        if x["launches"] != x["want"]:
+            fail(f"{what}: launches {x['launches']}, expected {x['want']} "
+                 f"(K1 once a control step; K2, K3, K4 never)")
+        bad = [(i, k) for i, m in enumerate(x["metrics"])
+               for k, v in m.items() if not math.isfinite(v)]
+        if bad or not x["obs_finite"]:
+            fail(f"{what}: not finite: {bad}")
+        if not x["replicas_close"]:
+            fail(f"{what}: replicas differ by {x['spread']:.3g} (rtol = "
+                 f"atol = 1e-6)")
+        if x["metrics"] != ranks[0]["metrics"]:
+            fail(f"{what}: the epoch's metrics differ across ranks")
+    x = ranks[0]
+    equal = ("bit-equal" if all(r["bit_equal"] for r in ranks)
+             else "within rtol = atol = 1e-6")
+    print(f"data parallel (nccl): launches per rank "
+          f"{[r['launches']['planar_control_step'] for r in ranks]} K1 "
+          f"(expected {x['want']['planar_control_step']}), K2 = K3 = K4 = 0; "
+          f"collectives per rank {x['collectives']}; replicas' largest "
+          f"difference {max(r['spread'] for r in ranks):.3g} "
+          f"({equal}); "
+          f"K1 on the end states max |kernel - plain| "
+          f"{max(r['k1_err'] for r in ranks):.3g}")
+    print(f"data parallel (nccl): warmup {x['warmup_s']:.2f} s, an "
+          f"iteration {x['iteration_ms']:.3f} ms (8 envs, K = 8 eager "
+          f"steps a rank), {x['total_env_steps']} env steps and "
+          f"{x['policy_steps']} gradient steps a rank; collectives of one "
+          f"SAC step (CUDA events): all_reduce_mean "
+          f"{x['allreduce_ms']:.4f} ms, raw nccl all_reduce of the three "
+          f"buffers ({x['grad_numels']} floats) {x['raw_allreduce_ms']:.4f} "
+          f"ms; one step {x['step']['wall_ms']:.3f} ms wall, "
+          f"{x['step']['operations']:.0f} device operations, "
+          f"{x['step']['device_ms']:.3f} ms device; on {card}")
+    print("data parallel (nccl) metrics, epoch 2: " + json.dumps(
+        {k: round(v, 6) for k, v in x["metrics"][1].items()}))
+
+
+def dp_check_gloo(ranks: list, card: str) -> None:
+    for x in ranks:
+        for kind in ("sac", "ppo"):
+            c = x[kind]
+            what = f"data parallel (gloo) rank {x['rank']} {kind}"
+            if not c["same_close"]:
+                fail(f"{what}: from the one-rank runner's data the "
+                     f"parameters differ from the one-rank run by "
+                     f"{c['same_err']:.3g} (rtol 1e-5, atol 1e-6)")
+            if not c["replicas_close"]:
+                fail(f"{what}: replicas differ by {c['spread']:.3g} (rtol "
+                     f"= atol = 1e-6)")
+            if not c["away"] > 1e-4:
+                fail(f"{what}: on distinct data the parameters stay at the "
+                     f"one-rank run's ({c['away']:.3g})")
+            bad = [k for k, v in c["metrics"].items()
+                   if not math.isfinite(v)]
+            if bad:
+                fail(f"{what}: not finite: {bad}")
+        sac = x["sac"]
+        want = {"planar_control_step": sac["warmup_iters"] + sac["iters"],
+                "planar_forward": 0, "fused_sac_chain": 0,
+                "fused_policy_forward": 0, "pgs_solve": 0}
+        if sac["launches"] != want:
+            fail(f"data parallel (gloo) rank {x['rank']}: launches "
+                 f"{sac['launches']}, expected {want}")
+        ppo_k1 = x["ppo"]["launches"]["planar_control_step"]
+        if ppo_k1 != DP_PPO_CUT["rollout_length"]:
+            fail(f"data parallel (gloo) rank {x['rank']} ppo: K1 "
+                 f"{ppo_k1}, expected {DP_PPO_CUT['rollout_length']}")
+    for kind in ("sac", "ppo"):
+        c = [x[kind] for x in ranks]
+        equal = ("bit-equal" if all(r["same_bit_equal"] for r in c)
+                 else "within rtol 1e-5, atol 1e-6")
+        print(f"data parallel (gloo, cuda tensors) {kind}: identical data "
+              f"against the one-rank run max |diff| "
+              f"{max(r['same_err'] for r in c):.3g} "
+              f"({equal}, metrics {max(r['metrics_err'] for r in c):.3g}); distinct "
+              f"data: replicas' largest difference "
+              f"{max(r['spread'] for r in c):.3g}, away from the one-rank "
+              f"run by {min(r['away'] for r in c):.3g}; launches "
+              f"{c[0]['launches']}, collectives {c[0]['collectives']}")
+    x = ranks[0]
+    print(f"data parallel (gloo, cuda tensors): collectives of one SAC step "
+          f"(CUDA events) all_reduce_mean {x['allreduce_ms']:.4f} ms, raw "
+          f"all_reduce {x['raw_allreduce_ms']:.4f} ms; one step "
+          f"{x['step']['wall_ms']:.3f} ms wall, "
+          f"{x['step']['operations']:.0f} device operations, "
+          f"{x['step']['device_ms']:.3f} ms device; on {card}")
+
+
 def main() -> int:
     import torch
+    only = sys.argv[1:]
+    if only not in ([], ["--phase20"], ["--phase20", "nccl"]):
+        print("usage: chip_smoke.py [--phase20 [nccl]]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3019,6 +3519,19 @@ def main() -> int:
     for b in built.values():
         print(f"--- nvcc {b.name}.cu ({b.seconds:.2f} s) ---")
         print(b.log.strip())
+
+    if only:
+        # phase 20 alone (the kernels built above): world = the cards
+        # over nccl, then, without "nccl", 2 ranks over gloo on one card
+        t0 = time.perf_counter()
+        dp = data_parallel_phase(card, only_nccl=only[1:] == ["nccl"])
+        print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"data_parallel_launches": dp["launches"]}))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "phase": 20, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     from ilswiss_tpu_torch.envs.locomotion import _model
     from ilswiss_tpu_torch.kernels.engine_profile import (
@@ -3751,6 +4264,9 @@ def main() -> int:
     # ---- 19. the host loops' device half over a stand-in host env --------
     host = host_phase(card, counters)
     lap("19")
+    # ---- 20. data parallelism over torch.distributed ----------------------
+    dp = data_parallel_phase(card)
+    lap("20")
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -3842,7 +4358,8 @@ def main() -> int:
     # DDPG, SAC-V and discrete SAC, PPO's run, the rnn GAIL's run A,
     # MBPO's run, phase 16's four runs, phase 17's three, phase 18's
     # four and phase 19's nine (no kernel launches on the visual path or
-    # on the host loops)
+    # on the host loops), and phase 20's ranks (K1 on each: the nccl
+    # ranks' runs, the gloo ranks' distinct-data SAC runs)
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
              "gail": gail["launches"], "td3": td3["launches"],
@@ -3850,7 +4367,8 @@ def main() -> int:
                 for name in ("ddpg", "sac_v", "dqn", "discrete_sac")},
              "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"],
              "mbpo": mbpo["launches"], **imitation["launches"],
-             **goal["launches"], **visual["launches"], **host["launches"]}
+             **goal["launches"], **visual["launches"], **host["launches"],
+             **dp["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -87,6 +87,7 @@ from ilswiss_tpu_torch.data.replay import (
 )
 from ilswiss_tpu_torch.models.discriminators import CNNDisc, MLPDisc
 from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
+from ilswiss_tpu_torch.parallel.distributed import all_reduce_mean
 
 MODES = ("airl", "gail", "gail2", "fairl")
 # the discriminator's init draws come from a CPU generator of their own,
@@ -156,7 +157,7 @@ class AdvIRL:
     def __init__(self, obs_size: int, action_size: int, policy_trainer,
                  expert_replay: ReplayState,
                  config: AdvIRLConfig = AdvIRLConfig(), feature_fn=None,
-                 feature_dim: int | None = None):
+                 feature_dim: int | None = None, group=None):
         if config.mode not in MODES:
             raise ValueError(f"unknown AdvIRL mode {config.mode!r}; "
                              f"known: {MODES}")
@@ -183,6 +184,9 @@ class AdvIRL:
         if feature_fn is not None:
             obs_size = feature_dim
         self.device = policy_trainer.device
+        # the ranks whose discriminator gradients every step averages (JAX:
+        # `axis_name`); the inner trainer averages its own
+        self.group = group
         self.disc_input_dim = (2 * obs_size if config.state_only
                                else obs_size + action_size)
 
@@ -348,7 +352,8 @@ class AdvIRL:
             loss = ce + cfg.grad_pen_weight * grad_pen
         else:
             grad_pen = torch.zeros((), device=dev)
-        grads = torch.autograd.grad(loss, state.disc_opt.params)
+        grads = all_reduce_mean(
+            torch.autograd.grad(loss, state.disc_opt.params), self.group)
         state.disc_opt.step(grads)
         if not (self.rnn or self.cnn):
             disc.update_batch_stats(stats)

@@ -49,7 +49,7 @@ class BC:
     def __init__(self, obs_size: int, action_size: int,
                  config: BCConfig = BCConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 device=None):
+                 device=None, group=None):
         if config.mode not in ("MLE", "MSE"):
             raise ValueError(f"BC mode {config.mode!r}: 'MLE' or 'MSE'")
         self.config = config
@@ -57,6 +57,9 @@ class BC:
         self.action_size = action_size
         self.hidden = (net_size,) * num_hidden_layers
         self.device = resolve_device(device)
+        # the ranks whose gradients every step averages (JAX:
+        # `axis_name`, parallel/mesh.py)
+        self.group = group
 
     def init(self, seed: int) -> BCState:
         """Fresh state; the init draws come from a CPU generator seeded
@@ -100,5 +103,5 @@ class BC:
         else:
             action = D.tanh_normal_sample(mean, log_std, eps)[0]
             loss = torch.mean(torch.sum((action - acts) ** 2, dim=-1))
-        state.policy_opt.step(state.policy_opt.grad(loss))
+        state.policy_opt.step(state.policy_opt.grad(loss, self.group))
         return state, {"bc_loss": loss.detach()}

@@ -67,12 +67,15 @@ class DDPG:
     def __init__(self, obs_size: int, action_size: int,
                  config: DDPGConfig = DDPGConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
         self.hidden = (net_size,) * num_hidden_layers
         self.device = resolve_device(device)
+        # the ranks whose gradients every step averages (JAX:
+        # `axis_name`, parallel/mesh.py)
+        self.group = group
 
     def init(self, seed: int) -> DDPGState:
         """Fresh state; the init draws come from a CPU generator seeded
@@ -122,10 +125,10 @@ class DDPG:
                 rewards + (1.0 - terminals) * cfg.discount * target_q,
                 cfg.min_q_value, cfg.max_q_value)
         qf_loss = torch.mean((state.qf(obs, actions) - q_target) ** 2)
-        gq = state.qf_opt.grad(qf_loss)
+        gq = state.qf_opt.grad(qf_loss, self.group)
         # against the critic before this step's update
         policy_loss = -torch.mean(state.qf(obs, state.policy(obs)))
-        gp = state.policy_opt.grad(policy_loss)
+        gp = state.policy_opt.grad(policy_loss, self.group)
         state.qf_opt.step(gq)
         state.policy_opt.step(gp)
 

@@ -72,12 +72,15 @@ class DiscreteSAC:
     def __init__(self, obs_size: int, num_actions: int,
                  config: DiscreteSACConfig = DiscreteSACConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.obs_size = obs_size
         self.num_actions = num_actions
         self.hidden = (net_size,) * num_hidden_layers
         self.device = resolve_device(device)
+        # the ranks whose gradients every step averages (JAX:
+        # `axis_name`, parallel/mesh.py)
+        self.group = group
 
     def init(self, seed: int) -> DiscreteSACState:
         """Fresh state; the init draws come from a CPU generator seeded
@@ -137,8 +140,8 @@ class DiscreteSAC:
             (_taken(state.qf1(obs), actions) - q_target) ** 2)
         qf2_loss = 0.5 * torch.mean(
             (_taken(state.qf2(obs), actions) - q_target) ** 2)
-        state.qf1_opt.step(state.qf1_opt.grad(qf1_loss))
-        state.qf2_opt.step(state.qf2_opt.grad(qf2_loss))
+        state.qf1_opt.step(state.qf1_opt.grad(qf1_loss, self.group))
+        state.qf2_opt.step(state.qf2_opt.grad(qf2_loss, self.group))
 
         # --- policy (discrete_sac.py:113-135) --------------------------
         logp = torch.log_softmax(state.policy(obs), dim=-1)
@@ -146,7 +149,8 @@ class DiscreteSAC:
         entropy = -torch.sum(p * logp, dim=-1)
         value = torch.sum(p * current_q, dim=-1)
         policy_loss = -torch.mean(cfg.alpha * entropy + value)
-        state.policy_opt.step(state.policy_opt.grad(policy_loss))
+        state.policy_opt.step(state.policy_opt.grad(policy_loss,
+                                                    self.group))
 
         soft_update(state.target_qf1, state.qf1, cfg.soft_target_tau)
         soft_update(state.target_qf2, state.qf2, cfg.soft_target_tau)

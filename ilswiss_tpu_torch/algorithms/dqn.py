@@ -69,12 +69,15 @@ class DQN:
     def __init__(self, obs_size: int, num_actions: int,
                  config: DQNConfig = DQNConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.obs_size = obs_size
         self.num_actions = num_actions
         self.hidden = (net_size,) * num_hidden_layers
         self.device = resolve_device(device)
+        # the ranks whose gradients every step averages (JAX:
+        # `axis_name`, parallel/mesh.py)
+        self.group = group
 
     def init(self, seed: int) -> DQNState:
         """Fresh state; the init draws come from a CPU generator seeded
@@ -139,7 +142,7 @@ class DQN:
             q_target = rewards + (1.0 - terminals) * cfg.discount * next_q
         q_pred = torch.take_along_dim(state.qf(obs), actions, dim=-1)
         qf_loss = torch.mean((q_pred - q_target) ** 2)
-        state.qf_opt.step(state.qf_opt.grad(qf_loss))
+        state.qf_opt.step(state.qf_opt.grad(qf_loss, self.group))
         epsilon = self.epsilon(state)
         state.n_train_steps += 1
         if state.n_train_steps % cfg.target_update_period == 0:

@@ -88,12 +88,15 @@ class PPO:
     def __init__(self, obs_size: int, action_size: int,
                  config: PPOConfig = PPOConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
         self.hidden = (net_size,) * num_hidden_layers
         self.device = resolve_device(device)
+        # the ranks whose gradients every step averages (JAX:
+        # `axis_name`, parallel/mesh.py)
+        self.group = group
 
     def init(self, seed: int) -> PPOState:
         """Fresh state; the init draws come from a CPU generator seeded
@@ -186,10 +189,12 @@ class PPO:
         policy step.  `batch`: obs, action, return, adv, fixed_logp,
         fixed_v.  Returns the two losses, detached."""
         vf_loss = self._vf_loss(state, batch)
-        state.vf_opt.step(state.vf_opt.grad(vf_loss))
+        state.vf_opt.step(state.vf_opt.grad(vf_loss, self.group))
         pg_loss = self._pg_loss(state, batch)
+        # averaged across the group before the clip, as JAX pmeans first
         state.policy_opt.step(clip_by_global_norm(
-            state.policy_opt.grad(pg_loss), self.config.policy_grad_clip))
+            state.policy_opt.grad(pg_loss, self.group),
+            self.config.policy_grad_clip))
         return vf_loss.detach(), pg_loss.detach()
 
     def _vf_loss(self, state: PPOState, batch: Dict[str, torch.Tensor]

@@ -22,6 +22,12 @@ autograd, as the JAX `train_step` takes its from XLA autodiff.
 ops/fused_sac.py, whose backward is derived by hand: kernel K2 for CUDA
 tensors, tensor operations for CPU tensors, no autograd in either.
 
+With a `group` (parallel/mesh.py), `train_step` averages each of its
+three gradient groups (the critics', the policy's, log alpha's) across
+the group's ranks before its Adam step, where the JAX step calls
+`pmean` over its `axis_name`; `Adam.grad` takes the same group for the
+trainers built on it.  Without one nothing is reduced.
+
 Unlike the JAX function, `train_step` updates the state's tensors IN
 PLACE (parameters, targets, moments, log alpha) and returns the same
 state object: that saves a copy of every parameter and moment per step.
@@ -44,6 +50,7 @@ from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
 from ilswiss_tpu_torch.data.replay import ReplayState, replay_sample
 from ilswiss_tpu_torch.ops.fused_mlp import fused_gaussian_policy_forward
 from ilswiss_tpu_torch.ops.fused_sac import fused_sac_chain
+from ilswiss_tpu_torch.parallel.distributed import all_reduce_mean
 from ilswiss_tpu_torch.utils.device import resolve_device
 from ilswiss_tpu_torch.utils.pytree import (
     copy_into, copy_params, soft_update,
@@ -136,9 +143,11 @@ class Adam:
                 copy_into(m, t, f"Adam.{name}[{i}]")
         self.count = int(state["count"])
 
-    def grad(self, loss: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """d loss / d (this optimizer's parameters), by autograd."""
-        return torch.autograd.grad(loss, self.params)
+    def grad(self, loss: torch.Tensor, group=None
+             ) -> tuple[torch.Tensor, ...]:
+        """d loss / d (this optimizer's parameters), by autograd, averaged
+        across the ranks of `group` (parallel/mesh.py) when one is given."""
+        return all_reduce_mean(torch.autograd.grad(loss, self.params), group)
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         self.count += 1
@@ -174,7 +183,7 @@ class SAC:
                  config: SACConfig = SACConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
                  use_fused_act: bool = False, use_fused_chain: bool = False,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
@@ -187,6 +196,10 @@ class SAC:
         # `train_step` calls
         self.use_fused_chain = use_fused_chain
         self.device = resolve_device(device)
+        # the ranks to average gradients across (JAX: `axis_name`); the
+        # loop takes the eager steps under a group, as K2 applies local
+        # gradients only
+        self.group = group
         self.target_entropy = (config.target_entropy
                                if config.target_entropy is not None
                                else -action_size / 2.0)
@@ -295,7 +308,8 @@ class SAC:
         qf_losses = 0.5 * torch.mean((q_pred - q_target[None]) ** 2,
                                      dim=(1, 2))
         qf_params = list(state.qf.parameters())
-        gq = torch.autograd.grad(torch.sum(qf_losses), qf_params)
+        gq = all_reduce_mean(torch.autograd.grad(torch.sum(qf_losses),
+                                                 qf_params), self.group)
         state.qf_opt.step(gq)
 
         # --- policy update against the updated critics -----------------
@@ -307,15 +321,16 @@ class SAC:
         reg = (cfg.policy_mean_reg_weight * torch.mean(mean ** 2)
                + cfg.policy_std_reg_weight * torch.mean(log_std ** 2))
         policy_loss = loss + reg
-        gp = torch.autograd.grad(policy_loss,
-                                 list(state.policy.parameters()))
+        gp = all_reduce_mean(torch.autograd.grad(
+            policy_loss, list(state.policy.parameters())), self.group)
         state.policy_opt.step(gp)
 
         # --- alpha update ----------------------------------------------
         target = (log_pi + self.target_entropy).detach()
         alpha_loss = -torch.mean(state.log_alpha * target)
         if cfg.train_alpha:
-            (ga,) = torch.autograd.grad(alpha_loss, [state.log_alpha])
+            (ga,) = all_reduce_mean(torch.autograd.grad(
+                alpha_loss, [state.log_alpha]), self.group)
             state.alpha_opt.step([ga])
             with torch.no_grad():
                 state.log_alpha.clamp_(math.log(cfg.min_alpha),

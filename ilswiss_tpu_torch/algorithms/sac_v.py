@@ -70,12 +70,15 @@ class SACV:
     def __init__(self, obs_size: int, action_size: int,
                  config: SACVConfig = SACVConfig(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
         self.hidden = (net_size,) * num_hidden_layers
         self.device = resolve_device(device)
+        # the ranks whose gradients every step averages (JAX:
+        # `axis_name`, parallel/mesh.py)
+        self.group = group
 
     def init(self, seed: int) -> SACVState:
         """Fresh state; the init draws come from a CPU generator seeded
@@ -135,19 +138,19 @@ class SACV:
                 state.target_vf(next_obs)
         qf1_loss = 0.5 * torch.mean((state.qf1(obs, actions) - q_target) ** 2)
         qf2_loss = 0.5 * torch.mean((state.qf2(obs, actions) - q_target) ** 2)
-        g1 = state.qf1_opt.grad(qf1_loss)
-        g2 = state.qf2_opt.grad(qf2_loss)
+        g1 = state.qf1_opt.grad(qf1_loss, self.group)
+        g2 = state.qf2_opt.grad(qf2_loss, self.group)
 
         # --- V loss and policy loss against the pre-update Qs ----------
         q_new = torch.minimum(state.qf1(obs, new_actions),
                               state.qf2(obs, new_actions))
         v_target = (q_new - cfg.alpha * log_pi).detach()
         vf_loss = 0.5 * torch.mean((state.vf(obs) - v_target) ** 2)
-        gv = state.vf_opt.grad(vf_loss)
+        gv = state.vf_opt.grad(vf_loss, self.group)
         policy_loss = torch.mean(cfg.alpha * log_pi - q_new) + (
             cfg.policy_mean_reg_weight * torch.mean(mean ** 2)
             + cfg.policy_std_reg_weight * torch.mean(log_std ** 2))
-        gp = state.policy_opt.grad(policy_loss)
+        gp = state.policy_opt.grad(policy_loss, self.group)
 
         state.qf1_opt.step(g1)
         state.qf2_opt.step(g2)

@@ -84,12 +84,15 @@ class TD3:
     def __init__(self, obs_size: int, action_size: int,
                  config: TD3Config = TD3Config(),
                  net_size: int = 256, num_hidden_layers: int = 2,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.obs_size = obs_size
         self.action_size = action_size
         self.hidden = (net_size,) * num_hidden_layers
         self.device = resolve_device(device)
+        # the ranks whose gradients every step averages (JAX:
+        # `axis_name`, parallel/mesh.py)
+        self.group = group
 
     def init(self, seed: int) -> TD3State:
         """Fresh state; the init draws come from a CPU generator seeded
@@ -163,14 +166,15 @@ class TD3:
                 cfg.q_target_min, cfg.q_target_max)
         qf1_loss = torch.mean((state.qf1(obs, actions) - q_target) ** 2)
         qf2_loss = torch.mean((state.qf2(obs, actions) - q_target) ** 2)
-        state.qf1_opt.step(state.qf1_opt.grad(qf1_loss))
-        state.qf2_opt.step(state.qf2_opt.grad(qf2_loss))
+        state.qf1_opt.step(state.qf1_opt.grad(qf1_loss, self.group))
+        state.qf2_opt.step(state.qf2_opt.grad(qf2_loss, self.group))
 
         # --- delayed policy and target update (td3.py:113-124) --------
         # reported at every step; its gradient is taken where it is used
         policy_loss = -torch.mean(state.qf1(obs, state.policy(obs)))
         if state.n_train_steps % cfg.policy_and_target_update_period == 0:
-            state.policy_opt.step(state.policy_opt.grad(policy_loss))
+            state.policy_opt.step(state.policy_opt.grad(policy_loss,
+                                                        self.group))
             tau = cfg.soft_target_tau
             soft_update(state.target_policy, state.policy, tau)
             soft_update(state.target_qf1, state.qf1, tau)

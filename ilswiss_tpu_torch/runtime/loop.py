@@ -9,8 +9,10 @@ epoch ends.  K = `grad_steps_per_iter` defaults to the number of envs
 (AdvIRL) takes the iteration's updates itself, sampling the ring and
 drawing from the runner's noise (JAX loop.py:134-149).  An algorithm with
 `use_fused_chain` set takes the K steps as one `train_chain` call (kernel
-K2); the JAX loop also requires that no mesh axis is set, which has no
-counterpart here until data parallelism is ported.
+K2) unless it carries a `group` (data parallelism, parallel/): K2
+applies local gradients only, so under a group the K eager steps run and
+average their gradients across the ranks, as the JAX loop takes its scan
+path under a mesh axis (loop.py:153-159).
 
 Every random draw of an iteration comes from one `noise` object, held by
 the RunnerState as JAX holds its key.  `Noise` draws from a
@@ -280,7 +282,8 @@ class OffPolicyLoop:
                 runner.algo_state, runner.replay, runner.noise)
             return runner, metrics
         if (getattr(self.algo, "use_fused_chain", False)
-                and self.sample_fn is sample_uniform):
+                and self.sample_fn is sample_uniform
+                and getattr(self.algo, "group", None) is None):
             runner.algo_state, metrics = self.algo.train_chain(
                 runner.algo_state, runner.replay, runner.noise,
                 cfg.batch_size, self.grad_steps_per_iter)
@@ -311,14 +314,20 @@ class OffPolicyLoop:
             runner = self._collect_iter(runner, random_actions=True)
         return runner
 
-    def train_epoch(self, runner: RunnerState, steps_per_epoch: int
-                    ) -> tuple[RunnerState, Dict[str, float]]:
+    def epoch_metrics(self, runner: RunnerState, steps_per_epoch: int
+                      ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
         """max(1, steps_per_epoch // num_envs) training iterations; returns
-        the per-epoch means of the metrics as floats."""
+        the per-epoch means of the metrics, kept on the device."""
         iters = max(1, steps_per_epoch // self.vec_env.num_envs)
         sums: Dict[str, torch.Tensor] = {}
         for _ in range(iters):
             runner, metrics = self._train_iter(runner)
             for k, v in metrics.items():
                 sums[k] = v if k not in sums else sums[k] + v
-        return runner, {k: float(v / iters) for k, v in sums.items()}
+        return runner, {k: v / iters for k, v in sums.items()}
+
+    def train_epoch(self, runner: RunnerState, steps_per_epoch: int
+                    ) -> tuple[RunnerState, Dict[str, float]]:
+        """`epoch_metrics` with the means as floats."""
+        runner, metrics = self.epoch_metrics(runner, steps_per_epoch)
+        return runner, {k: float(v) for k, v in metrics.items()}

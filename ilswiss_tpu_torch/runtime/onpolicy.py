@@ -16,7 +16,9 @@ package's: the T acting steps normalize the observations with the OLD
 moments; the moments then merge all T * B rollout observations; the
 rollout's `obs` and `last_obs` are normalized with the NEW moments before
 `train_step` (so the update's old log-probs are those of observations
-the acting policy saw normalized otherwise).
+the acting policy saw normalized otherwise).  Under an algorithm's
+`group` (data parallelism, parallel/) the moments merge every rank's
+rollout, as the JAX loop passes its `axis_name` (onpolicy.py:90-94).
 
 Draws.  Every draw comes from the runner's `noise` (runtime/loop.py::
 Noise), in this order: per acting step, the algorithm's `act_noise(noise,
@@ -114,7 +116,8 @@ class OnPolicyLoop:
         obs_rms = runner.obs_rms
         if obs_rms is not None:
             obs_rms = running_mean_std_update(
-                obs_rms, obs.reshape(-1, obs.shape[-1]))
+                obs_rms, obs.reshape(-1, obs.shape[-1]),
+                group=getattr(algo, "group", None))
         rollout = {
             "obs": self.normalize(obs_rms, obs),
             "action": torch.stack([tr.action for tr in steps]),
@@ -142,11 +145,11 @@ class OnPolicyLoop:
         """On-policy training has no warmup: the runner as it is."""
         return runner
 
-    def train_epoch(self, runner: OnPolicyRunnerState, steps_per_epoch: int
-                    ) -> tuple[OnPolicyRunnerState, Dict[str, float]]:
+    def epoch_metrics(self, runner: OnPolicyRunnerState,
+                      steps_per_epoch: int
+                      ) -> tuple[OnPolicyRunnerState, Dict[str, torch.Tensor]]:
         """max(1, steps_per_epoch // (T * num_envs)) iterations; returns
-        the per-epoch means of the metrics as floats (kept on the device
-        until the epoch ends)."""
+        the per-epoch means of the metrics, kept on the device."""
         iters = max(1, steps_per_epoch // (self.config.rollout_length
                                            * self.vec_env.num_envs))
         sums: Dict[str, torch.Tensor] = {}
@@ -154,4 +157,10 @@ class OnPolicyLoop:
             runner, metrics = self._iter(runner)
             for k, v in metrics.items():
                 sums[k] = v if k not in sums else sums[k] + v
-        return runner, {k: float(v / iters) for k, v in sums.items()}
+        return runner, {k: v / iters for k, v in sums.items()}
+
+    def train_epoch(self, runner: OnPolicyRunnerState, steps_per_epoch: int
+                    ) -> tuple[OnPolicyRunnerState, Dict[str, float]]:
+        """`epoch_metrics` with the means as floats."""
+        runner, metrics = self.epoch_metrics(runner, steps_per_epoch)
+        return runner, {k: float(v) for k, v in metrics.items()}

@@ -49,12 +49,20 @@ maps:
     both sides; its key has no counterpart: the port's runner draws from
     a `Noise` and seeds its collector with the run's seed.
 
+  * a JAX distributed runner stacks its shards: `env_state` and the
+    ring's rows are [n * B, ...] and [n * cap, ...], `ptr`, `size`,
+    `total_env_steps` and the keys [n]; the port's runners are one per
+    rank (parallel/distributed.py), and rank r holds rows r * B to
+    (r + 1) * B of the envs, ring shard r and its counters; the
+    replicated learner state goes to every rank.
+
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -83,6 +91,7 @@ from ilswiss_tpu_torch.models.policies import (
     GaussianPolicy, TanhGaussianPolicy,
 )
 from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
+from ilswiss_tpu_torch.runtime.loop import RunnerState
 from ilswiss_tpu_torch.runtime.host_loop import (
     HostOnPolicyRunnerState, HostRunnerState,
 )
@@ -546,6 +555,71 @@ def onpolicy_runner_from_jax(loop: OnPolicyLoop, jrunner, noise
         env_state=env_state_from_jax(jrunner.env_state, device),
         algo_state=ppo_state_from_jax(loop.algo, jrunner.algo_state),
         total_env_steps=int(np.asarray(jrunner.total_env_steps)),
+        obs_rms=running_mean_std_from_jax(jrunner.obs_rms, device))
+
+
+# --- the distributed runners' ranks -----------------------------------------
+def _algo_state_from_jax(algo, jstate):
+    if isinstance(algo, SAC):
+        return sac_state_from_jax(algo, jstate)
+    if isinstance(algo, AdvIRL):
+        return adv_irl_state_from_jax(algo, jstate)
+    if isinstance(algo, PPO):
+        return ppo_state_from_jax(algo, jstate)
+    return offpolicy_state_from_jax(algo, jstate)
+
+
+def _shard(x, rank: int, world_size: int):
+    x = np.asarray(x)
+    rows = x.shape[0] // world_size
+    return x[rank * rows:(rank + 1) * rows]
+
+
+def _env_shard(jstate, rank: int, world_size: int):
+    internal = jstate.internal
+    internal = (tuple(_shard(x, rank, world_size) for x in internal)
+                if isinstance(internal, (tuple, list))
+                else _shard(internal, rank, world_size))
+    return SimpleNamespace(internal=internal,
+                           obs=_shard(jstate.obs, rank, world_size),
+                           t=_shard(jstate.t, rank, world_size))
+
+
+def rank_runner_from_jax(loop, jrunner, rank: int, world_size: int, noise
+                         ) -> RunnerState:
+    """Rank `rank`'s RunnerState, on `loop`'s device, of a JAX
+    `DistributedOffPolicyRunner` state stacked over `world_size` shards:
+    its env rows, its ring shard with its cursor, size and episode
+    counters, its env-step count, and the replicated algorithm state;
+    drawing from `noise`."""
+    device, r = loop.device, jrunner.replay
+    ring = SimpleNamespace(
+        data={k: _shard(v, rank, world_size) for k, v in r.data.items()},
+        ep_id=_shard(r.ep_id, rank, world_size),
+        ptr=np.asarray(r.ptr)[rank], size=np.asarray(r.size)[rank],
+        env_ep=_shard(r.env_ep, rank, world_size))
+    return RunnerState(
+        noise=noise,
+        env_state=env_state_from_jax(
+            _env_shard(jrunner.env_state, rank, world_size), device),
+        replay=replay_from_jax(ring, device),
+        algo_state=_algo_state_from_jax(loop.algo, jrunner.algo_state),
+        total_env_steps=int(np.asarray(jrunner.total_env_steps)[rank]))
+
+
+def rank_onpolicy_runner_from_jax(loop: OnPolicyLoop, jrunner, rank: int,
+                                  world_size: int, noise
+                                  ) -> OnPolicyRunnerState:
+    """Rank `rank`'s OnPolicyRunnerState of a JAX
+    `DistributedOnPolicyRunner` state: its env rows and env-step count,
+    the replicated PPO state and moments; drawing from `noise`."""
+    device = loop.device
+    return OnPolicyRunnerState(
+        noise=noise,
+        env_state=env_state_from_jax(
+            _env_shard(jrunner.env_state, rank, world_size), device),
+        algo_state=ppo_state_from_jax(loop.algo, jrunner.algo_state),
+        total_env_steps=int(np.asarray(jrunner.total_env_steps)[rank]),
         obs_rms=running_mean_std_from_jax(jrunner.obs_rms, device))
 
 

@@ -7,8 +7,11 @@ The reference vec-env's obs_rms (rlkit/envs/vecenvs.py:102-107,299-327):
 the count starts at eps = 1e-4, a batch is merged by Chan's parallel
 rule, and the variance is the population variance (`jnp.var`, ddof 0).
 `running_mean_std_update` returns new tensors and leaves its argument
-alone.  The JAX `axis_name` (moments averaged across a mesh) comes with
-data parallelism, ROADMAP.md section 1 item 2.9.
+alone.  With a `group` (the JAX `axis_name`; parallel/mesh.py) every rank
+merges the same global batch moments: the mean across ranks of `var +
+mean**2` and of `mean` (one all-reduce), the variance recentred on the
+global mean, and the count times the world size (every rank's batch is
+as large).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ilswiss_tpu_torch.parallel.distributed import all_reduce_mean
 
 
 @dataclass
@@ -33,13 +38,20 @@ def running_mean_std_init(shape, device, eps: float = 1e-4
                           count=torch.tensor(eps, **kw))
 
 
-def running_mean_std_update(rms: RunningMeanStd, batch: torch.Tensor
-                            ) -> RunningMeanStd:
-    """The moments with the rows of `batch` [B, *shape] merged in."""
+def running_mean_std_update(rms: RunningMeanStd, batch: torch.Tensor,
+                            group=None) -> RunningMeanStd:
+    """The moments with the rows of `batch` [B, *shape] merged in; with a
+    `group`, the rows of every rank's batch."""
     batch = batch.reshape((-1,) + tuple(rms.mean.shape))
     batch_mean = torch.mean(batch, dim=0)
     batch_var = torch.var(batch, dim=0, correction=0)
-    batch_count = torch.tensor(float(batch.shape[0]), dtype=rms.count.dtype,
+    rows = batch.shape[0]
+    if group is not None:
+        global_sq, batch_mean = all_reduce_mean(
+            [batch_var + batch_mean ** 2, batch_mean], group)
+        batch_var = global_sq - batch_mean ** 2
+        rows *= group.world_size
+    batch_count = torch.tensor(float(rows), dtype=rms.count.dtype,
                                device=rms.count.device)
     delta = batch_mean - rms.mean
     tot = rms.count + batch_count
