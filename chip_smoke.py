@@ -204,7 +204,8 @@ exits non-zero on any failure; no phase catches its own error.
  18. the visual path: exp_specs/sac_ae/, sac_rad/ and sac_curl/
      *_pendulum_pixels.yaml through `EXPERIMENTS` cut in length only (1
      epoch of 400 steps after the spec's 1000-step warmup; 16 envs of 64
-     px, K = 8 at batch 128, the 100,000-row ring, bf16 convs, crop 56 for
+     px, K = 8 at batch 128, the 100,000-row ring (RAD's and CURL's cut to
+     10,000 rows), bf16 convs, crop 56 for
      RAD and CURL), under build/chip_smoke_visual/ (each run's logs deleted
      once read): no kernel launch, every value finite, TotalEnvSteps 1392,
      one SAC-AE step on the card against a CPU copy (16 rows of a batch,
@@ -228,11 +229,20 @@ exits non-zero on any failure; no phase catches its own error.
      1984 / 2976 both), and 1 epoch with the collection not overlapped;
      gail_pendulum.yaml and ppo_pendulum.yaml with force_host, 1 epoch;
      `HostHERLoop` and `HostMBPOLoop` on the her_sac_reach2d.yaml and
-     mbpo_pendulum.yaml constants, one segment each.  No kernel launch on
-     any run, every value finite; a segment's collection and a train
-     call's wall ms, a 20-step call's device operations and device ms,
-     TrainTime overlapped and serial, and a 4-step train call on the card
-     against a CPU copy at phase 18's pins;
+     mbpo_pendulum.yaml constants, one segment each; then the DMC pixel
+     branch (ROADMAP.md item 2.8's DMC half): exp_specs/sac_ae/
+     sac_ae_dmc_finger_spin.yaml through `EXPERIMENTS["sac_ae"]` at its
+     widths (84 x 84 x 9 uint8 frames, 1024 x 2, 4 x 32 convs, feature 50,
+     batch 128, the 20,000-row uint8 ring on the card) over
+     `ilswiss_tpu_torch.testing.PixelEnvAsHost` (no dm_control there):
+     its 1000-step warmup, one epoch of 2 segments of 250 steps, one
+     evaluation episode, then a light resume for a second epoch.  No
+     kernel launch on any run, every value finite; a segment's collection
+     and a train call's wall ms, a 20-step call's device operations and
+     device ms, TrainTime overlapped and serial, and a 4-step train call
+     on the card against a CPU copy at phase 18's pins; the DMC ring's
+     capacity line (from `torch.cuda.mem_get_info`), dtype and bytes,
+     TotalEnvSteps 1500 / 2000, its snapshots;
  20. data parallelism over torch.distributed (`data_parallel_phase`), one
      process a rank, spawned and joined with a deadline (a rank that
      fails or hangs fails the script): (a) nccl with one rank per card
@@ -249,7 +259,18 @@ exits non-zero on any failure; no phase catches its own error.
      away from it; the world size and backend, an iteration's wall ms, the
      collectives' ms per SAC step (CUDA events) and a step's device
      operations.  `python3 chip_smoke.py --phase20 [nccl]` runs phases 1,
-     2 and 20 alone (with "nccl", (a) only), for a call on four cards.
+     2 and 20 alone (with "nccl", (a) only), for a call on four cards;
+ 21. N SAC seeds in one process (`seeds_phase`, ROADMAP.md item 2.10):
+     exp_specs/sac/sac_hopper_seeds.yaml through
+     `EXPERIMENTS["sac_vmap_seeds"]` at its widths (3 seeds, 8 envs a
+     seed, 256 x 2, batch 512, K = 8, a 1M ring a seed), its 5000-step
+     warmup and one epoch of 25 iterations, the path length cut to 100
+     (32 evaluation episodes a seed), under build/chip_smoke_seeds/: K1
+     exactly once per control step (750, at B = 24), K2 = K3 = K4 = 0;
+     then each seed alone through the same entry point, each seed of the
+     joint run bit-equal to its one-seed run; every value finite,
+     seeds_summary.csv one row an epoch, K1 at B = 24 on the end states
+     against its plain version.
 
 It prints a JSON line with every kernel's numbers, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
@@ -2346,8 +2367,12 @@ VISUAL_SPECS = {
     "sac_rad": ("sac_rad", "exp_specs/sac_rad/sac_rad_pendulum_pixels.yaml"),
     "sac_curl": ("sac_curl",
                  "exp_specs/sac_curl/sac_curl_pendulum_pixels.yaml")}
-# 800 of the specs' 4000 steps an epoch
+# 400 of the specs' 4000 steps an epoch
 VISUAL_CUT = {"num_epochs": 1, "num_steps_per_epoch": 400}
+# RAD's and CURL's ring cut to 10,000 rows (the specs' 100,000): their
+# 9.2 GiB snapshots were a third of the phase; SAC-AE keeps the spec's ring
+# and its snapshots
+VISUAL_SMALL_RING = {"sac_rad": 10_000, "sac_curl": 10_000}
 VISUAL_METRICS = {
     "sac_ae": ["qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
                "rec_loss", "latent_loss"],
@@ -2392,7 +2417,8 @@ def visual_phase(card: str, counters: dict) -> dict:
     `EXPERIMENTS[...]` on the card, cut in length only (1 epoch of 400
     steps after the spec's 1000-step warmup), logs under
     build/chip_smoke_visual/: 16 envs of 64 px frames, K = 8 SAC-AE steps
-    an iteration at batch 128, the spec's 100,000-row float32 ring, a 4 x
+    an iteration at batch 128, the spec's 100,000-row float32 ring (RAD's
+    and CURL's cut to VISUAL_SMALL_RING), a 4 x
     32 conv encoder of 50 features in bf16, a 256 x 2 SAC, crop 56 for RAD
     and CURL.  The path is analytic and eager: no kernel may launch.
     Fails unless every progress.csv value is finite, TotalEnvSteps is 62
@@ -2441,7 +2467,10 @@ def visual_phase(card: str, counters: dict) -> dict:
           f"{json.dumps(found)}")
     result = {"launches": {}}
     for what, (name, path) in VISUAL_SPECS.items():
-        variant, full = cut_spec(path, out, VISUAL_CUT)
+        cut = dict(VISUAL_CUT)
+        if what in VISUAL_SMALL_RING:
+            cut["replay_buffer_size"] = VISUAL_SMALL_RING[what]
+        variant, full = cut_spec(path, out, cut)
         log_dir = out / what
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2634,6 +2663,15 @@ HOST_CHECK_STEPS = 4
 HOST_PROFILE_STEPS = 20
 HOST_PACKAGES = ("mujoco", "gymnasium", "gymnasium_robotics", "Box2D",
                  "dm_control")
+# (e) the DMC pixel branch: sac_ae_dmc_finger_spin.yaml at its widths (84 x
+# 84 x 9 uint8 frames, 1024 x 2, 4 x 32 convs, feature 50, batch 128, the
+# 20,000-row ring) over `PixelEnvAsHost`, cut in length: its 1000-step
+# warmup, one epoch of 2 segments of 250 steps (125 SAC-AE steps each) and
+# one evaluation episode of the stand-in's 1000 steps (the spec's 2);
+# then a light resume for a second epoch
+HOST_DMC_SPEC = "exp_specs/sac_ae/sac_ae_dmc_finger_spin.yaml"
+HOST_DMC_CUT = {"num_epochs": 1, "num_steps_per_epoch": 500,
+                "num_steps_per_eval": 1000}
 
 
 @contextlib.contextmanager
@@ -2662,6 +2700,23 @@ def host_standin():
         yield loops
     finally:
         host_mujoco.GymVectorEnv, HostOffPolicyLoop.__init__ = gym_env, init
+
+
+@contextlib.contextmanager
+def dmc_standin():
+    """Inside: the DMC env that the launcher's `_dmc_env` builds is
+    `PixelEnvAsHost` (uint8 pendulum_pixels frames behind DMCVectorEnv's
+    contract), whatever domain the spec names: the GPU machine has no
+    dm_control."""
+    from ilswiss_tpu_torch.envs import host_dmc
+    from ilswiss_tpu_torch.testing import PixelEnvAsHost
+
+    dmc = host_dmc.DMCVectorEnv
+    host_dmc.DMCVectorEnv = PixelEnvAsHost
+    try:
+        yield
+    finally:
+        host_dmc.DMCVectorEnv = dmc
 
 
 @contextlib.contextmanager
@@ -2731,7 +2786,8 @@ def host_phase(card: str, counters: dict) -> dict:
       (c) exp_specs/ppo/ppo_pendulum.yaml with force_host, 1 iteration;
       (d) `HostHERLoop` on her_sac_reach2d.yaml's constants (the stand-in
           on reach2d) and `HostMBPOLoop` on mbpo_pendulum.yaml's, a
-          warmup and one segment each.
+          warmup and one segment each;
+      (e) the DMC pixel branch over `PixelEnvAsHost` (`host_dmc_run`).
     No kernel may launch on any run; every progress.csv value and metric
     must be finite; TotalEnvSteps after the full resume continues the
     saved count.  Prints a segment's collection ms, the wall ms of run C's
@@ -2998,9 +3054,205 @@ def host_phase(card: str, counters: dict) -> dict:
         result[what] = {"warmup_s": warm_s, "segment_s": seg_s,
                         "metrics": m}
         runs.append((what, warm_s + seg_s))
+
+    # (e) SAC-AE on the DMC pixel branch over the uint8 stand-in
+    result["dmc"] = host_dmc_run(card, counters, out, zero)
+    runs.append(("dmc", sum(result["dmc"]["seconds"])))
     shutil.rmtree(out)
     print(f"host: seconds by run {json.dumps(dict(runs))}")
     return result
+
+
+def host_dmc_run(card: str, counters: dict, out: Path, zero) -> dict:
+    """Phase 19 (e): `EXPERIMENTS["sac_ae"]` on HOST_DMC_SPEC cut to
+    HOST_DMC_CUT over `dmc_standin()`, then a light resume from its
+    'last' for a second epoch.  Fails unless no kernel launched, the ring
+    is uint8 on the card with the spec's 20,000 rows (the capacity rule's
+    line, from `torch.cuda.mem_get_info`, in debug.log), every
+    progress.csv value is finite, TotalEnvSteps is 1500 and, after the
+    light resume, 2000 (1 epoch of 500 steps, the new warmup's 1000, 500),
+    the trainer took 250 and 500 SAC-AE steps, and 'best' and a light
+    'last' are written.  Prints the sizing line, each run's seconds, a
+    train call's wall ms and the ring's bytes."""
+    import torch
+
+    variant, full = cut_spec(HOST_DMC_SPEC, out, HOST_DMC_CUT)
+    log_dir = out / "dmc"
+    rl = variant["rl_alg_params"]
+    with dmc_standin(), timed_calls() as calls_ms:
+        runner, launches, sec_a = run_spec("sac_ae", variant, log_dir,
+                                           counters, None)
+        zero("dmc", launches)
+        ring = runner.replay.data["obs"]
+        ring_bytes = sum(t.numel() * t.element_size()
+                         for t in runner.replay.data.values())
+        steps_a, sac_steps_a = runner.total_env_steps, runner.algo_state.step
+        del runner
+        torch.cuda.empty_cache()
+        runner, launches, sec_b = run_spec(
+            "sac_ae", variant, log_dir, counters, 2,
+            load_params=str(log_dir))
+        zero("dmc_light_resume", launches)
+    segment = max(rl["num_steps_between_train_calls"], 250)
+    grads = round(segment * rl["num_train_steps_per_train_call"]
+                  / rl["num_steps_between_train_calls"])
+    n_seg = rl["num_steps_per_epoch"] // segment
+    warm = rl["min_steps_before_training"]
+    if ring.dtype != torch.uint8 or ring.device.type != "cuda" or tuple(
+            ring.shape) != (full["replay_buffer_size"], 84, 84, 9):
+        fail(f"host dmc: the obs ring is {ring.dtype} {tuple(ring.shape)} "
+             f"on {ring.device}")
+    rows = progress_rows(log_dir)
+    need = ["trainer/qf1_loss", "trainer/rec_loss", "TotalEnvSteps",
+            "TrainTime", "SnapshotTime"] + EVAL_COLUMNS[:5]
+    if len(rows) != 2 or not set(need) <= set(rows[0]) or not all(
+            math.isfinite(float(v)) for r in rows for v in r.values()):
+        fail(f"host dmc: progress.csv {rows}")
+    total = [float(r["TotalEnvSteps"]) for r in rows]
+    want = [warm + rl["num_steps_per_epoch"],
+            2 * rl["num_steps_per_epoch"] + warm]
+    if total != want or steps_a != want[0] or sac_steps_a != n_seg * grads \
+            or runner.algo_state.step != 2 * n_seg * grads:
+        fail(f"host dmc: TotalEnvSteps {total} (expected {want}), SAC-AE "
+             f"steps {sac_steps_a}, {runner.algo_state.step} (expected "
+             f"{n_seg * grads}, {2 * n_seg * grads})")
+    ckpts = log_dir / "checkpoints"
+    meta = json.loads((ckpts / "meta.json").read_text())
+    if not {"best", "last"} <= {p.name for p in ckpts.iterdir()} or \
+            not meta.get("light"):
+        fail(f"host dmc: snapshots {sorted(p.name for p in ckpts.iterdir())}"
+             f", meta {meta}")
+    log = (log_dir / "debug.log").read_text()
+    sizing = [ln for ln in log.splitlines() if "visual replay sizing" in ln]
+    if not sizing or "light-resumed algo state" not in log:
+        fail("host dmc: debug.log has no sizing line or no light resume")
+    snap_mb = sum(f.stat().st_size for f in (ckpts / "last").iterdir()) \
+        / 2**20
+    print(f"host dmc ({HOST_DMC_SPEC}, the stand-in PixelEnvAsHost, "
+          f"{n_seg} segments of {segment} steps, {grads} SAC-AE steps a "
+          f"segment at batch {rl['batch_size']}): {sizing[-1].split('| ')[-1]}"
+          f"; runs {sec_a:.1f} s (1 epoch) + {sec_b:.1f} s (a light resume, "
+          f"1 epoch); TotalEnvSteps {total}; train calls {calls_ms[:2]} "
+          f"ms of wall time ({grads} steps each); ring "
+          f"{ring_bytes / 1e9:.4f} GB uint8; a light 'last' {snap_mb:.1f} "
+          f"MiB; AverageReturn "
+          f"{[float(r['AverageReturn']) for r in rows]}; on {card}")
+    del runner
+    torch.cuda.empty_cache()
+    return {"seconds": [sec_a, sec_b], "total_env_steps": total,
+            "train_call_ms": calls_ms, "ring_bytes": ring_bytes,
+            "sizing": sizing[-1], "snapshot_mib": snap_mb}
+
+
+SEEDS_DIR = "build/chip_smoke_seeds"
+SEEDS_SPEC = "exp_specs/sac/sac_hopper_seeds.yaml"
+# sac_hopper_seeds.yaml at its widths (3 seeds, 8 envs a seed, 256 x 2,
+# batch 512, K = 8, a 1M ring a seed) and its 5000-step warmup, cut to one
+# epoch of 25 iterations; the evaluation's (and the episodes') path length
+# cut to 100 steps, num_steps_per_eval to 32 episodes of it
+SEEDS_CUT = {"num_epochs": 1, "num_steps_per_epoch": 200,
+             "max_path_length": 100, "num_steps_per_eval": 3200}
+
+
+def seeds_phase(card: str, counters: dict, k1_check) -> dict:
+    """Phase 21: N SAC seeds in one process, `EXPERIMENTS["sac_vmap_seeds"]`
+    on SEEDS_SPEC cut to SEEDS_CUT, logs under build/chip_smoke_seeds/:
+    the seeds' envs step as one batch, so K1 must launch exactly once per
+    control step of the run (625 warmup + 25 training + 100 evaluation
+    steps), not once per seed and step; K2, K3, K4 never.  Then each seed
+    alone through the same entry point (`seeds: [s]`), and each seed of
+    the joint run must equal its one-seed run bit for bit (trainer, env
+    state, ring, noise): K1 computes an env in one thread, whatever the
+    batch, and each seed draws from its own generator in the one-seed
+    order.  Every progress.csv value finite, seeds_summary.csv one row an
+    epoch; K1 at B = 24 on the joint run's end states against its plain
+    version.  Prints the launches, an iteration's wall ms, the evaluation's
+    seconds, the returns and each run's seconds."""
+    import csv
+    import shutil
+    import types
+
+    import torch
+
+    from ilswiss_tpu_torch.ops import planar_dynamics as pd
+    from ilswiss_tpu_torch.runtime.checkpoint import to_tree
+    from ilswiss_tpu_torch.runtime.seeds import cat_env_states
+    from ilswiss_tpu_torch.testing import tree_diff
+
+    out = ROOT / SEEDS_DIR
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    variant, full = cut_spec(SEEDS_SPEC, out, SEEDS_CUT)
+    seeds, rl = variant["seeds"], variant["rl_alg_params"]
+    n = variant["env_specs"]["env_num"]
+    steps = (rl["min_steps_before_training"] // n
+             + rl["num_steps_per_epoch"] // n + rl["max_path_length"])
+    want = dict(NO_LAUNCHES, planar_control_step=steps)
+    runner, launches, sec = run_spec("sac_vmap_seeds", variant, out / "all",
+                                     counters, None)
+    check_launches("seeds", (("(3 seeds, 1 epoch)", launches, want),))
+    result = {"launches": {"seeds": launches}, "seconds": {"all": sec}}
+    returns = {}
+    for s in seeds:
+        row = finite_row(f"seeds seed {s}", out / "all" / f"seed_{s}_id0",
+                         ["trainer/qf1_loss", "TotalEnvSteps", "TrainTime",
+                          "EvalTime"] + EVAL_COLUMNS[:5])
+        returns[s] = row["AverageReturn"]
+    with open(out / "all" / "seeds_summary.csv") as f:
+        summary = list(csv.reader(f))
+    if len(summary) != 1 + rl["num_epochs"] or summary[0][:2] != [
+            "Epoch", "TotalEnvSteps"]:
+        fail(f"seeds: seeds_summary.csv {summary}")
+    joint = types.SimpleNamespace(env_state=cat_env_states(
+        [r.env_state for r in runner.runners]))
+    k1_ms, k1_err = k1_on_end_states("the seeds'", joint, n * len(seeds),
+                                     pd.planar_control_step, k1_check, 71,
+                                     sizes=(n * len(seeds),))
+    train_s = row["TrainTime"]
+    equal = {}
+    for i, s in enumerate(seeds):
+        alone, launches_s, sec_s = run_spec(
+            "sac_vmap_seeds", variant, out / f"seed{s}", counters, None,
+            seeds=[s])
+        check_launches(f"seeds seed {s} alone", (("(1 epoch)", launches_s,
+                                                  want),))
+        diff = tree_diff(to_tree(runner.runners[i]),
+                         to_tree(alone.runners[0]))
+        if diff:
+            a, b = runner.runners[i].algo_state, alone.runners[0].algo_state
+            gap = max(float((x - y).abs().max()) for x, y in zip(
+                a.policy.parameters(), b.policy.parameters()))
+            fail(f"seeds: seed {s} differs from its one-seed run at "
+                 f"{diff[:5]} (policy max |gap| {gap:.3g})")
+        equal[s] = "bit-equal"
+        result["seconds"][f"seed{s}"] = sec_s
+        del alone
+    print(f"seeds ({SEEDS_SPEC}, seeds {seeds}, {n} envs a seed, "
+          f"{rl['min_steps_before_training']} warmup steps, "
+          f"{rl['num_steps_per_epoch'] // n} iterations of K = "
+          f"{_grad_steps(rl, n)} at batch {rl['batch_size']}, evaluation "
+          f"{rl['max_path_length']} steps): K1 {launches['planar_control_step']}"
+          f" launches at B = {n * len(seeds)} (control steps {steps}; one "
+          f"seed alone {steps} at B = {n}); each seed against its one-seed "
+          f"run: {equal}; an iteration (3 seeds) "
+          f"{1e3 * train_s / (rl['num_steps_per_epoch'] // n):.1f} ms of "
+          f"wall time; returns {returns}; K1 at B = {n * len(seeds)} on "
+          f"the end states max |err| {k1_err[n * len(seeds)]:.3g}, "
+          f"{k1_ms[n * len(seeds)]:.4f} ms; runs {sec:.1f} s (3 seeds), "
+          + ", ".join(f"{result['seconds'][f'seed{s}']:.1f} s (seed {s})"
+                      for s in seeds) + f"; on {card}")
+    result.update(k1_ms=k1_ms, k1_err=k1_err, equal=equal, returns=returns,
+                  iteration_ms=1e3 * train_s
+                  / (rl["num_steps_per_epoch"] // n))
+    del runner
+    torch.cuda.empty_cache()
+    shutil.rmtree(out)
+    return result
+
+
+def _grad_steps(rl: dict, n: int) -> int:
+    return max(1, round(n * rl["num_train_steps_per_train_call"]
+                        / rl["num_steps_between_train_calls"]))
 
 
 DP_DIR = "build/chip_smoke_dp"
@@ -4267,6 +4519,9 @@ def main() -> int:
     # ---- 20. data parallelism over torch.distributed ----------------------
     dp = data_parallel_phase(card)
     lap("20")
+    # ---- 21. N SAC seeds in one process -----------------------------------
+    seeds = seeds_phase(card, counters, k1_step_check)
+    lap("21")
 
     k2_k8_bound = k2_bound(512, 11, 3, 256, 2, 8, bf16=True)
     print(f"K2 at the launcher's shape (hopper, B = 512, 256 x 2, K = 8, "
@@ -4357,9 +4612,10 @@ def main() -> int:
     # GAIL launcher's run A, TD3's and DQN's run A, the 1-epoch runs of
     # DDPG, SAC-V and discrete SAC, PPO's run, the rnn GAIL's run A,
     # MBPO's run, phase 16's four runs, phase 17's three, phase 18's
-    # four and phase 19's nine (no kernel launches on the visual path or
-    # on the host loops), and phase 20's ranks (K1 on each: the nccl
-    # ranks' runs, the gloo ranks' distinct-data SAC runs)
+    # four and phase 19's eleven (no kernel launches on the visual path or
+    # on the host loops), phase 20's ranks (K1 on each: the nccl ranks'
+    # runs, the gloo ranks' distinct-data SAC runs) and phase 21's joint
+    # seeds run (K1 once a control step)
     paths = {"hopper": hopper_launches, "ant": ant_launches,
              "humanoid": humanoid_launches, "launcher": launcher["launches"],
              "gail": gail["launches"], "td3": td3["launches"],
@@ -4368,7 +4624,7 @@ def main() -> int:
              "ppo": ppo["launches"], "gail_rnn": gail_rnn["launches"],
              "mbpo": mbpo["launches"], **imitation["launches"],
              **goal["launches"], **visual["launches"], **host["launches"],
-             **dp["launches"]}
+             **dp["launches"], **seeds["launches"]}
     for entry, name in zip(kernels, ("planar_control_step", "fused_sac_chain",
                                      "fused_policy_forward", "pgs_solve")):
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -34,8 +34,8 @@ As the port's SAC, a step updates the state's tensors IN PLACE and returns
 the same state object; its Gaussian noise comes in as tensors (`eps_next`,
 `eps_new`, drawn by `train_noise` every step, also where the actor-critic
 phase does not run), the draws JAX makes from `split(key)`.
-`acting_state` (the host loops' snapshot slice) comes with the host loops,
-ROADMAP.md section 1 item 2.8.
+`acting_state` is the slice that the host loops copy to the CPU for
+acting: the encoder and the policy.
 """
 
 from __future__ import annotations
@@ -177,6 +177,18 @@ class SACAE:
         """The draws of one `train_step`: noise.train, (eps_next, eps_new)
         N(0, 1) [batch_size, A] each."""
         return noise.train((batch_size, self.action_size))
+
+    def acting_state(self, state: SACAEState) -> SACAEState:
+        """The acting slice of `state` (JAX sac_ae.py:162-172): the
+        encoder and the policy; the decoder, the critics, the targets, W,
+        log alpha and the five optimizers are None, so the host loop's
+        per-segment copy holds what `act` reads and nothing else."""
+        return SACAEState(
+            encoder=state.encoder, decoder=None, policy=state.policy,
+            qf1=None, qf2=None, target_encoder=None, target_qf1=None,
+            target_qf2=None, cpc_W=None, log_alpha=None, qf_opt=None,
+            policy_opt=None, alpha_opt=None, encdec_opt=None, cpc_opt=None,
+            step=state.step)
 
     @torch.no_grad()
     def act(self, state: SACAEState, obs: torch.Tensor,

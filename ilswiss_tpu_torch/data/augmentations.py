@@ -146,7 +146,15 @@ def color_jitter(imgs: torch.Tensor, u: torch.Tensor,
     `color_jitter`, :145): one factor per image shared by its k frames,
     drawn as lo + u * (hi - lo) from the rows of `u` [6, B]; the HSV chain
     and the contrast op in the order row 0's first coin picks; an image
-    jittered where its `take` uniform is below p."""
+    jittered where its `take` uniform is below p.  uint8 frames (the DMC
+    ring's) are jittered as x / 255 and come back as uint8, rounded; the
+    JAX function takes their 0..255 values for [0, 1] ones (its HSV
+    chain wraps uint8 differences and clips the value channel to 1), a
+    reference fault that the port does not copy (ROADMAP.md section 3)."""
+    if imgs.dtype == torch.uint8:
+        out = color_jitter(imgs.to(torch.float32) / 255.0, u, brightness,
+                           contrast, saturation, hue, p)
+        return torch.round(out * 255.0).to(torch.uint8)
     b, h, w, C = imgs.shape
     k = C // 3
     x = imgs.reshape(b, h, w, k, 3)

@@ -1,7 +1,9 @@
 """Variant-dict -> training run (counterpart:
-ilswiss_tpu/launchers/experiments.py; the off-policy trainers, AdvIRL,
-PPO, MBPO, BC, DAgger, expert demo generation, HER, GCSL, SAC-AE / RAD /
-CURL on device pixel envs, policy evaluation, and the host env paths).
+ilswiss_tpu/launchers/experiments.py, every experiment of its
+`EXPERIMENTS` table: the off-policy trainers, AdvIRL, PPO, MBPO, BC,
+DAgger, expert demo generation, HER, GCSL, SAC-AE / RAD / CURL on device
+pixel envs and on the DMC pixel envs, N SAC seeds in one process, policy
+evaluation and rendering, and the host env paths).
 
 Rebuild of the reference's run_scripts/*_exp_script.py `experiment(variant)`
 functions (e.g. sac_alpha_exp_script.py:23-101): consume the SAME yaml
@@ -21,12 +23,11 @@ or an env name outside the device registry that gymnasium knows), so does
 the port: `run_sac`, `run_td3`, `run_ddpg`, `run_ppo`, `run_adv_irl`,
 `run_her`, `run_mbpo` and `run_gen_expert` step the env on the host
 (envs/host_mujoco.py, envs/native_mujoco.py) and learn on `device`
-(runtime/host_loop.py).  The other launchers build a device env as the
-JAX ones do, which raises KeyError for a host env name.  A trainer or env
-that is not ported yet (the DMC pixel envs, `env_name: dmc`) raises
-NotImplementedError naming the item of ROADMAP.md section 1 that ports
-it.  Nothing falls back, but the native MuJoCo engine to gymnasium where
-the machine cannot build it (`_make_host_env`).
+(runtime/host_loop.py); `env_name: dmc` takes `run_sac_ae` and
+`run_gen_expert` to the DMC pixel envs (envs/host_dmc.py).  The other
+launchers build a device env as the JAX ones do, which raises KeyError
+for a host env name.  Nothing falls back, but the native MuJoCo engine to
+gymnasium where the machine cannot build it (`_make_host_env`).
 """
 
 from __future__ import annotations
@@ -55,15 +56,6 @@ from ilswiss_tpu_torch.utils.guards import (
     PreemptionGuard, check_finite_metrics, enable_debug_nans,
 )
 from ilswiss_tpu_torch.utils.profiling import phase, trace
-
-HOST_ITEM = "2.8"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ilswiss_tpu_torch yet: ROADMAP.md "
-        f"section 1 item {item}")
-
 
 def _alg(variant: Dict, key: str) -> Dict:
     return dict(variant.get(key) or {})
@@ -1357,18 +1349,20 @@ def _subsample_transitions(state, factor: int, seed: int):
 def _collect_host_transitions(variant: Dict, env_name: str,
                               env_kwargs: Dict, num_envs: int, seed: int,
                               act_fn: Callable, steps_per_env: int,
-                              logger: Logger, device):
+                              logger: Logger, device, env=None):
     """`steps_per_env` steps of `act_fn(obs, noise)` (tensors on `device`,
     draws from `Noise(seed, device)`) over a host vector env reset with
     `seed`, packed as a demo ReplayState on `device`: episode ids env *
-    1,000,000 + the env's episode count (JAX experiments.py:1981-2017,
-    without its DMC case).  The env is closed on exit."""
+    1,000,000 + the env's episode count (JAX experiments.py:1981-2017).
+    `env` reuses a built env (the DMC pixel branch); else the launcher's
+    host env is built.  The env is closed on exit."""
     import torch
 
     from ilswiss_tpu_torch.data.demo import demos_to_replay_state
 
-    env = _make_host_env(variant, env_name, env_kwargs, num_envs, seed,
-                         logger)
+    if env is None:
+        env = _make_host_env(variant, env_name, env_kwargs, num_envs, seed,
+                             logger)
     noise = Noise(seed, device)
     try:
         obs = env.reset(seed=seed)
@@ -1407,9 +1401,12 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     demos/<exp_name>.npz) and registered under `expert_name` in
     `demos_listing` (default demos_listing.yaml) (reference
     run_scripts/gen_expert_demos.py; the JAX `run_gen_expert`,
-    experiments.py:1839-1978).  The DMC pixel branch raises naming item
-    2.8; a set `load_params` raises ValueError (the JAX launcher never
-    reads it).  Returns the path written."""
+    experiments.py:1839-1978).  `env_name: dmc` rolls a SAC-AE / RAD /
+    CURL snapshot at `expert_path` (the port's DMC runner's; `augs` /
+    `augmentation_params` give the crop it acts through) over DMC pixel
+    envs, the JAX DMC branch (:1857-1903); a set `load_params` raises
+    ValueError (the JAX launcher never reads it).  Returns the path
+    written."""
     import yaml
 
     from ilswiss_tpu_torch.data.demo import save_demos_npz
@@ -1420,10 +1417,8 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     device = resolve_device(device)
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
         variant, "gen_expert")
-    if env_name == "dmc":
-        # it renders DMC on the host (envs/host_dmc.py), a host bridge
-        raise _not_ported("gen_expert's DMC pixel branch", HOST_ITEM)
-    host = _route_host(variant, env_name)
+    is_dmc = env_name == "dmc"
+    host = is_dmc or _route_host(variant, env_name)
     num_envs = max(1, num_envs)
     max_path_length = int(variant.get(
         "max_path_length", env_kwargs.get("max_episode_steps", 1000)))
@@ -1434,8 +1429,40 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     deterministic = bool(variant.get("use_deterministic_expert", True))
     vec = None if host else make_vec(env_name, num_envs=num_envs,
                                      device=device, **env_kwargs)
+    dmc_env = None
 
-    if bool(variant.get("use_scripted_policy", False)):
+    if is_dmc:
+        # a pixel expert: host-rendered frames and a trained SAC-AE / RAD /
+        # CURL snapshot, its trainer read from encoder_params alone
+        from ilswiss_tpu_torch.algorithms.sac_ae import SACAE, SACAEConfig
+        from ilswiss_tpu_torch.data.augmentations import center_crop
+
+        dmc_env = _dmc_env(variant, env_kwargs, num_envs, seed)
+        img_size = dmc_env.observation_size[0]
+        enc = _alg(variant, "encoder_params")
+        augs, crop_size = _visual_augs(variant, img_size)
+        algo = SACAE(
+            action_size=dmc_env.action_size,
+            config=SACAEConfig(
+                image_size=crop_size if augs else img_size,
+                frame_channels=dmc_env.observation_size[-1],
+                feature_dim=int(enc.get("encoder_feature_dim", 50)),
+                num_conv_layers=int(enc.get("num_layers", 4)),
+                num_filters=int(enc.get("num_filters", 32))),
+            net_size=int(variant.get("net_size", 1024)),
+            num_hidden_layers=int(variant.get("num_hidden_layers", 2)),
+            device=device)
+        algo_state = restore_subtree(str(variant["expert_path"]),
+                                     algo.init(0))
+
+        def act_fn(obs, noise):
+            if augs:
+                obs = center_crop(obs, crop_size)
+            if deterministic:
+                return algo.act(algo_state, obs, deterministic=True)
+            return algo.act(algo_state, obs,
+                            *algo.act_noise(noise, obs.shape[0]))
+    elif bool(variant.get("use_scripted_policy", False)):
         if env_name not in SCRIPTED_EXPERTS:
             raise KeyError(f"no scripted expert for '{env_name}'; "
                            f"available: {sorted(SCRIPTED_EXPERTS)}")
@@ -1469,7 +1496,8 @@ def run_gen_expert(variant: Dict[str, Any], device=None):
     if host:
         demos = _collect_host_transitions(variant, env_name, env_kwargs,
                                           num_envs, seed, act_fn,
-                                          steps_per_env, logger, device)
+                                          steps_per_env, logger, device,
+                                          env=dmc_env)
     else:
         demos = collect_transitions(vec, act_fn, steps_per_env,
                                     Noise(seed, device))
@@ -1515,19 +1543,237 @@ def _visual_augs(variant: Dict, img_size: int) -> tuple[tuple, int]:
 
 
 class _CropActing:
-    """SAC-AE for the loop, its acting through `view` (the center crop of
-    RAD and CURL; JAX experiments.py:1461-1491)."""
+    """SAC-AE for the loops, its acting through `view` (the center crop of
+    RAD and CURL; JAX experiments.py:1265-1283, 1461-1491).  It forwards
+    `acting_state`, or the host loop's per-segment acting copy would hold
+    the whole state (critics, decoder, targets, five optimizers)."""
 
     def __init__(self, algo, view: Callable):
         self.algo, self.view = algo, view
+        self.device = algo.device
+        self.action_size = algo.action_size
         self.init = algo.init
         self.act_noise = algo.act_noise
         self.train_noise = algo.train_noise
         self.train_step = algo.train_step
+        self.acting_state = algo.acting_state
 
     def act(self, state, obs, eps=None, deterministic=False):
         return self.algo.act(state, self.view(obs), eps,
                              deterministic=deterministic)
+
+
+# free device memory where the backend reports none: the JAX launcher's
+# fallback (its `_hbm_replay_capacity`, experiments.py:1189), kept so that
+# the port sizes a ring on the CPU as the JAX launcher does there
+JAX_FREE_MEMORY_FALLBACK = 16_000_000_000
+
+
+def _hbm_replay_capacity(requested: int, obs_shape, logger: Logger, device,
+                         budget_frac: float = 0.35) -> int:
+    """The rows of a uint8 image ring that fit the device (JAX
+    experiments.py:1166-1202): the obs and next_obs rings get
+    `budget_frac` of the device's free memory (`torch.cuda.mem_get_info`
+    on a card; JAX_FREE_MEMORY_FALLBACK elsewhere), in whole thousands of
+    rows, at least 1000; the spec's value is an upper bound, never
+    exceeded.  A full-snapshot resume under other memory pressure can
+    derive another capacity, whose ring the snapshot then does not fit
+    (the restore raises); light snapshots, the visual runs' default,
+    rebuild the ring."""
+    import torch
+
+    bytes_per = 2 * int(np.prod(obs_shape))   # a uint8 obs + next_obs row
+    device = torch.device(device)
+    if device.type == "cuda":
+        free = int(torch.cuda.mem_get_info(device)[0])
+    else:
+        free = JAX_FREE_MEMORY_FALLBACK
+    derived = max(1000, int(free * budget_frac) // bytes_per // 1000 * 1000)
+    cap = min(int(requested), derived)
+    logger.log(
+        f"visual replay sizing: spec={requested} derived={derived} "
+        f"(free HBM {free / 1e9:.1f} GB, {bytes_per} B/transition, "
+        f"budget {budget_frac:.0%}) -> capacity {cap}")
+    return cap
+
+
+def _dmc_env(variant: Dict, env_kwargs: Dict, num_envs: int, seed: int):
+    """The DMC pixel env of a spec (`env_specs.frame_stack`, default 3;
+    env_kwargs without the launcher's max_episode_steps and dmc2gym's
+    visualize_reward and from_pixels: DMC's own time limit ends episodes),
+    rendering through EGL unless MUJOCO_GL names another backend."""
+    os.environ.setdefault("MUJOCO_GL", "egl")
+    from ilswiss_tpu_torch.envs.host_dmc import DMCVectorEnv
+
+    kw = dict(env_kwargs)
+    for drop in ("max_episode_steps", "visualize_reward", "from_pixels"):
+        kw.pop(drop, None)
+    return DMCVectorEnv(
+        num_envs=max(1, num_envs), seed=seed,
+        frame_stack=int(_alg(variant, "env_specs").get("frame_stack", 3)),
+        **kw)
+
+
+def _run_host_sac_ae(variant: Dict, rl: Dict, logger: Logger, seed: int,
+                     env_kwargs: Dict, num_envs: int, device):
+    """SAC-AE, RAD and CURL on the DMC pixel envs (JAX experiments.py:
+    1204-1407, the reference's dmc2gym runs): frames rendered and stepped
+    on the host (envs/host_dmc.py), a uint8 ring and the learner on
+    `device` (`HostOffPolicyLoop`).
+
+    The trainer is read from `encoder_params` (encoder_feature_dim,
+    num_layers, num_filters; the top-level feature_dim / num_conv_layers /
+    num_filters only where it has none, whereas the device branch reads
+    the top level alone) and `sac_params`; nets default to 1024 x 2.
+    Segments: `num_steps_between_train_calls` env steps a train call in the
+    reference; here max(that, `min_segment_steps`, default 250) env steps
+    a segment, with the gradient steps at the spec's ratio, unless
+    `exact_cadence` (the JAX rule, kept for parity).  The ring holds
+    `_hbm_replay_capacity` rows.  `prewarm_only`: one segment, then exit;
+    `max_wall_minutes`: at the first epoch boundary past it, flush a
+    'last' snapshot and exit.  Snapshots: 'last' every min(4, freq_saving)
+    epochs and at the end, params only unless `light_snapshots` is false;
+    'best' params only.  Resume (`load_params`): as `_run_host_off_policy`,
+    the TotalEnvSteps convention of ROADMAP.md section 3 (host fault 2).
+    Each epoch logs the trainer's metrics, the evaluation
+    (num_steps_per_eval // max_path_length episodes from a reset with
+    seed + epoch + 1 + 10,000), TotalEnvSteps, TrainTime, EnvStepsPerSec
+    and SnapshotTime, the JAX keys."""
+    from functools import partial
+
+    from ilswiss_tpu_torch.algorithms.sac_ae import SACAE, SACAEConfig
+    from ilswiss_tpu_torch.data.aug_replay import augmented_sample
+    from ilswiss_tpu_torch.data.augmentations import center_crop
+    from ilswiss_tpu_torch.runtime.host_loop import (
+        HostLoopConfig, HostOffPolicyLoop,
+    )
+
+    env = _dmc_env(variant, env_kwargs, num_envs, seed)
+    try:
+        img_size = env.observation_size[0]
+        p = _alg(variant, "sac_params")
+        enc = _alg(variant, "encoder_params")
+        augs, crop_size = _visual_augs(variant, img_size)
+        use_cpc = int(p.get("cpc_update_freq", 0)) > 0
+        algo = SACAE(
+            action_size=env.action_size,
+            config=SACAEConfig(
+                image_size=crop_size if augs else img_size,
+                frame_channels=env.observation_size[-1],
+                feature_dim=int(enc.get("encoder_feature_dim",
+                                        variant.get("feature_dim", 50))),
+                num_conv_layers=int(enc.get(
+                    "num_layers", variant.get("num_conv_layers", 4))),
+                num_filters=int(enc.get("num_filters",
+                                        variant.get("num_filters", 32))),
+                discount=float(p.get("discount", 0.99)),
+                reward_scale=float(p.get("reward_scale", 1.0)),
+                policy_lr=float(p.get("policy_lr", 1e-3)),
+                qf_lr=float(p.get("qf_lr", 1e-3)),
+                encdec_lr=float(p.get("encdec_lr", 1e-3)),
+                init_alpha=float(p.get("alpha", 0.1)),
+                alpha_lr=float(p.get("alpha_lr", 1e-3)),
+                soft_target_tau=float(p.get("soft_target_tau", 0.01)),
+                enc_soft_target_tau=float(p.get("enc_soft_target_tau",
+                                                0.05)),
+                ac_update_freq=int(p.get("ac_update_freq", 2)),
+                encdec_update_freq=int(p.get("encdec_update_freq", 1)),
+                cpc_update_freq=int(p.get("cpc_update_freq", 0)),
+                target_update_freq=int(p.get("target_update_freq", 2)),
+            ),
+            net_size=int(variant.get("net_size", 1024)),
+            num_hidden_layers=int(variant.get("num_hidden_layers", 2)),
+            device=device)
+
+        def view(obs):
+            return center_crop(obs, crop_size) if augs else obs
+
+        # the JAX rule: segments of at least min_segment_steps env steps
+        # at the spec's ratio of gradient steps to env steps
+        steps_between = int(rl.get("num_steps_between_train_calls", 1000))
+        train_per_call = int(rl.get("num_train_steps_per_train_call", 500))
+        if bool(rl.get("exact_cadence", False)):
+            segment = steps_between
+        else:
+            segment = max(steps_between,
+                          int(rl.get("min_segment_steps", 250)))
+        grads_per_segment = max(1, round(
+            segment * train_per_call / max(1, steps_between)))
+        loop = HostOffPolicyLoop(env, _CropActing(algo, view), HostLoopConfig(
+            batch_size=int(rl.get("batch_size", 128)),
+            replay_capacity=_hbm_replay_capacity(
+                int(rl.get("replay_buffer_size", 100_000)),
+                env.observation_size, logger, device),
+            steps_between_train_calls=segment,
+            train_steps_per_call=grads_per_segment,
+            min_steps_before_training=int(
+                rl.get("min_steps_before_training", 1000)),
+        ), sample_fn=(partial(augmented_sample, augs=augs,
+                              out_size=crop_size, cpc=use_cpc)
+                      if augs else None))
+
+        steps_per_epoch = int(rl.get("num_steps_per_epoch", 10_000))
+        num_epochs = int(rl.get("num_epochs", 100))
+        num_eval_episodes = _num_host_eval_episodes(rl)
+        light = bool(rl.get("light_snapshots", True))
+        snap = SnapshotManager(
+            logger.log_dir, mode="gap_last",
+            gap=min(4, int(rl.get("freq_saving", 10))),
+            save_best=bool(rl.get("save_best", True)),
+            best_state_fn=lambda r: {"algo_state": r.algo_state},
+            last_state_fn=(
+                (lambda r: {"algo_state": r.algo_state}) if light else None))
+        logger.log(f"trainer {type(algo).__name__} on host env {env.name}: "
+                   f"{algo.config}; augs {augs}, crop {crop_size}; "
+                   f"{loop.config}")
+
+        runner = loop.init(seed)
+        runner, start_epoch, resumed, meta = _maybe_resume(variant, logger,
+                                                           runner)
+        snap.best_value = float(meta.get("best_value", snap.best_value))
+        if resumed != "full":
+            runner = loop.warmup(runner)
+            logger.log(f"warmup done: {runner.total_env_steps} env steps")
+        steps_offset = (start_epoch * steps_per_epoch
+                        if resumed == "light" else 0)
+        if bool(rl.get("prewarm_only", False)):
+            t0 = time.time()
+            runner, _ = loop.train_epoch(runner, segment)
+            logger.log(f"prewarm: one segment of the visual learner in "
+                       f"{time.time() - t0:.1f}s")
+            return runner
+        wall_budget_s = float(rl.get("max_wall_minutes", 0)) * 60.0
+        run_t0 = time.time()
+        for epoch in range(start_epoch, num_epochs):
+            if wall_budget_s and time.time() - run_t0 > wall_budget_s:
+                logger.log(
+                    f"wall budget {wall_budget_s / 60:.0f} min reached at "
+                    f"epoch {epoch}; flushing 'last' and exiting (resume "
+                    f"via load_params)")
+                snap.save_last(runner, epoch=epoch - 1)
+                return runner
+            t0 = time.time()
+            runner, metrics = loop.train_epoch(runner, steps_per_epoch)
+            train_time = time.time() - t0
+            eval_stats = loop.evaluate(runner, num_eval_episodes,
+                                       seed=seed + epoch + 1)
+            logger.record_dict(metrics, prefix="trainer/")
+            logger.record_dict(eval_stats)
+            logger.record_tabular("TotalEnvSteps",
+                                  steps_offset + runner.total_env_steps)
+            logger.record_tabular("TrainTime", train_time)
+            logger.record_tabular(
+                "EnvStepsPerSec", steps_per_epoch / max(train_time, 1e-9))
+            t_snap = time.time()
+            snap.on_epoch(epoch, runner, eval_stats)
+            logger.record_tabular("SnapshotTime", time.time() - t_snap)
+            logger.dump_tabular(epoch)
+        if num_epochs > start_epoch:
+            snap.save_last(runner, epoch=num_epochs - 1)
+        return runner
+    finally:
+        env.close()
+        logger.close()
 
 
 def run_sac_ae(variant: Dict[str, Any], device=None):
@@ -1539,23 +1785,26 @@ def run_sac_ae(variant: Dict[str, Any], device=None):
     acting and evaluation see center-cropped frames.  The evaluation runs
     on the training envs for `max_path_length` steps; each epoch logs the
     trainer's metrics, the evaluation, TotalEnvSteps, TrainTime and
-    EvalTime, and snapshots as `_run_epochs` does.  `env_name: dmc` (the
-    host DMC branch) raises naming item 2.8; a set `load_params` raises
-    ValueError (the JAX device branch never reads it, so a resume there
-    silently starts afresh and overwrites the run's snapshots)."""
+    EvalTime, and snapshots as `_run_epochs` does; a set `load_params`
+    raises ValueError (the JAX device branch never reads it, so a resume
+    there silently starts afresh and overwrites the run's snapshots).
+    `env_name: dmc` takes the host DMC branch, `_run_host_sac_ae`, which
+    does resume."""
     from functools import partial
 
     from ilswiss_tpu_torch.algorithms.sac_ae import SACAE, SACAEConfig
     from ilswiss_tpu_torch.data.aug_replay import augmented_sample
     from ilswiss_tpu_torch.data.augmentations import center_crop
 
-    _refuse_resume(variant, "SAC-AE")
     device = resolve_device(device)
+    if _alg(variant, "env_specs").get("env_name") == "dmc":
+        seed, _, env_kwargs, num_envs, rl, logger = _setup(variant,
+                                                           "sac_ae")
+        return _run_host_sac_ae(variant, rl, logger, seed, env_kwargs,
+                                num_envs, device)
+    _refuse_resume(variant, "SAC-AE")
     seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
         variant, "sac_ae")
-    if env_name == "dmc":
-        raise _not_ported("the DMC pixel envs (envs/host_dmc.py)",
-                          HOST_ITEM)
     vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
     img_size = vec.env.observation_size[0]
     p = _alg(variant, "sac_params")
@@ -1790,15 +2039,216 @@ def run_gcsl(variant: Dict[str, Any], device=None):
                        seed, device)
 
 
-def _unported_run(name: str, item: str) -> Callable:
-    def run(variant: Dict[str, Any], device=None):
-        raise _not_ported(f"the {name!r} experiment", item)
-    run.__name__ = f"run_{name}"
-    return run
+def run_sac_vmapped_seeds(variant: Dict[str, Any], device=None):
+    """N independent SAC seeds in one process (the JAX
+    `run_sac_vmapped_seeds`, experiments.py:2041-2186; exp_specs/sac/
+    sac_hopper_seeds.yaml): `seeds` (default 0, 1, 2) each train as a
+    one-seed `run_sac` on a device env would, from `OffPolicyLoop.init(
+    seed)`, through `runtime/seeds.py::SeedsOffPolicyLoop`, which steps all
+    seeds' envs as one batch (K1 once per control step on a planar model).
+    Each seed writes `seed_<s>_id0/progress.csv` and variant.json under
+    the experiment's directory (`log_dir`, or logs/<exp_name>), and each
+    epoch adds a row to `seeds_summary.csv` there (its header, returns
+    rounded to 2 places) and prints the JAX epoch line.  The evaluation:
+    max(num_steps_per_eval // max_path_length, min_eval_episodes (32),
+    env_num) envs a seed, deterministic, reset from Noise(100,000 * (epoch
+    + 1) + s), all seeds' envs as one batch.  Snapshots of the seeds'
+    runners under the experiment's directory (mode `snapshot_mode`,
+    default gap_and_last; 'best', at the seeds' mean return, params
+    only); `load_params` resumes through `_maybe_resume`, and a light
+    resume refills the rings through warmup (the JAX launcher warms up
+    only at epoch 0, so after a light resume it trains on empty rings:
+    ROADMAP.md section 3).  A host env raises ValueError, as in JAX."""
+    import csv
+
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.runtime.seeds import (
+        SeedsOffPolicyLoop, make_seeds_evaluator,
+    )
+
+    device = resolve_device(device)
+    seeds = [int(s) for s in variant.get("seeds") or (0, 1, 2)]
+    env_specs = _alg(variant, "env_specs")
+    env_name = env_specs.get("env_name", "hopper")
+    env_kwargs = dict(env_specs.get("env_kwargs") or {})
+    rl = _alg(variant, "rl_alg_params")
+    max_path_length = int(rl.get("max_path_length", 1000))
+    env_kwargs.setdefault("max_episode_steps", max_path_length)
+    num_envs = int(env_specs.get("env_num", 8))
+    if _is_host_env(env_name):
+        raise ValueError(
+            "sac_vmap_seeds needs an on-device env (got host env "
+            f"{env_name!r}): the seeds' envs step as one device batch")
+
+    exp_dir = variant.get("log_dir") or os.path.join(
+        "logs", variant.get("exp_name", "sac_seeds"))
+    loggers = []
+    for s in seeds:
+        lg = Logger(os.path.join(exp_dir, f"seed_{s}_id0"),
+                    print_to_console=False)
+        lg.save_variant({**variant, "seed": s})
+        loggers.append(lg)
+
+    vec = make_vec(env_name, num_envs=num_envs, device=device, **env_kwargs)
+    p = _alg(variant, "sac_params")
+    algo = SAC(
+        obs_size=vec.env.observation_size,
+        action_size=vec.env.action_size,
+        config=SACConfig(
+            discount=float(p.get("discount", 0.99)),
+            reward_scale=float(p.get("reward_scale", 1.0)),
+            soft_target_tau=float(p.get("soft_target_tau", 5e-3)),
+            policy_lr=float(p.get("policy_lr", 3e-4)),
+            qf_lr=float(p.get("qf_lr", 3e-4)),
+            alpha_lr=float(p.get("alpha_lr", 3e-4)),
+            target_entropy=p.get("target_entropy"),
+        ),
+        use_fused_chain=bool(p.get("use_fused_chain", False)),
+        device=device, **_nets(variant))
+    loop = SeedsOffPolicyLoop(vec, algo, OffPolicyConfig(
+        batch_size=int(rl.get("batch_size", 512)),
+        replay_capacity=int(rl.get("replay_buffer_size", 1_000_000)),
+        min_steps_before_training=int(
+            rl.get("min_steps_before_training", 5000)),
+        grad_steps_per_iter=_grad_steps_per_iter(rl, num_envs),
+    ), num_seeds=len(seeds))
+    steps_per_epoch = int(rl.get("num_steps_per_epoch", 10_000))
+    num_epochs = int(rl.get("num_epochs", 100))
+    n_eval = max(
+        int(rl.get("num_steps_per_eval", 10_000)) // max_path_length,
+        int(rl.get("min_eval_episodes", 32)), num_envs)
+    evaluate = make_seeds_evaluator(
+        VectorEnv(vec.env, n_eval),
+        lambda s, o: algo.act(s, o, deterministic=True), max_path_length,
+        len(seeds))
+    snap = SnapshotManager(
+        exp_dir, mode=str(rl.get("snapshot_mode", "gap_and_last")),
+        gap=int(rl.get("freq_saving", 10)),
+        save_best=bool(rl.get("save_best", True)),
+        best_state_fn=lambda r: {"algo_state": r.algo_state})
+    loggers[0].log(f"trainer {type(algo).__name__} x {len(seeds)} seeds "
+                   f"{seeds}: {algo.config}; {loop.config}, "
+                   f"{loop.loop.grad_steps_per_iter} steps an iteration")
+
+    runner = loop.init(seeds)
+    runner, start_epoch, resumed, meta = _maybe_resume(variant, loggers[0],
+                                                       runner)
+    snap.best_value = float(meta.get("best_value", snap.best_value))
+    if resumed != "full":
+        runner = loop.warmup(runner)
+    steps_offset = (start_epoch * steps_per_epoch
+                    if resumed == "light" else 0)
+
+    summary_path = os.path.join(exp_dir, "seeds_summary.csv")
+    with open(summary_path, "a", newline="") as fh:
+        if fh.tell() == 0:
+            csv.writer(fh).writerow(
+                ["Epoch", "TotalEnvSteps", "MeanAverageReturn",
+                 "StdAverageReturn"] + [f"Return_seed{s}" for s in seeds])
+
+    for epoch in range(start_epoch, num_epochs):
+        t0 = time.time()
+        runner, metrics = loop.train_epoch(runner, steps_per_epoch)
+        train_time = time.time() - t0
+        t0 = time.time()
+        stats = evaluate(runner.algo_state,
+                         [Noise(100_000 * (epoch + 1) + s, device)
+                          for s in seeds])
+        eval_time = time.time() - t0
+        steps = [steps_offset + r.total_env_steps for r in runner.runners]
+        rets = np.asarray([st["AverageReturn"] for st in stats], np.float64)
+        for lg, m, st, n in zip(loggers, metrics, stats, steps):
+            lg.record_dict(m, prefix="trainer/")
+            lg.record_dict(st)
+            lg.record_tabular("TotalEnvSteps", n)
+            lg.record_tabular("TrainTime", train_time)
+            lg.record_tabular("EvalTime", eval_time)
+            lg.dump_tabular(epoch)
+        with open(summary_path, "a", newline="") as fh:
+            csv.writer(fh).writerow(
+                [epoch, steps[0], round(float(rets.mean()), 2),
+                 round(float(rets.std()), 2)]
+                + [round(float(r), 2) for r in rets])
+        print(f"[sac_vmap_seeds] epoch {epoch}: return "
+              f"{rets.mean():.1f} ± {rets.std():.1f} "
+              f"(seeds {np.round(rets, 1).tolist()}), "
+              f"{steps_per_epoch * len(seeds) / max(train_time, 1e-9):.0f}"
+              f" agg steps/s", flush=True)
+        snap.on_epoch(epoch, runner, {"AverageReturn": float(rets.mean())})
+    for lg in loggers:
+        lg.close()
+    return runner
 
 
-# every name of the JAX table (experiments.py:2188-2210); those not ported
-# yet raise, naming the ROADMAP.md section 1 item that ports them
+def run_render_policy(variant: Dict[str, Any], device=None):
+    """Deterministic rollouts of a trained SAC policy rendered to video
+    (reference run_scripts/render_algorithm.py and video.py:12-29; the JAX
+    `run_render_policy`, experiments.py:918-976).  The policy is restored
+    from the SAC snapshot at `policy_checkpoint` (`policy_net_size` x
+    `policy_num_hidden_layers`) onto `device`; the frames come from the
+    matching gymnasium env (render_mode rgb_array, EGL unless MUJOCO_GL
+    names another backend): the device envs have no renderer, and their
+    observations are gymnasium's, so a policy trained on them acts on the
+    gymnasium env.  Rollout r (of `num_rollouts`) resets with seed + r,
+    runs at most `max_path_length` steps, is written to rollout_<r>.mp4 in
+    the run's log dir (`logging/vistools.py::save_video`; a gif where no
+    ffmpeg backend is installed) at `fps` (default 1 / the env's dt), and
+    logs Return_<r>."""
+    import torch
+
+    from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+    from ilswiss_tpu_torch.logging.vistools import save_video
+
+    os.environ.setdefault("MUJOCO_GL", "egl")
+    import gymnasium
+
+    device = resolve_device(device)
+    seed, env_name, env_kwargs, num_envs, rl, logger = _setup(
+        variant, "render_policy")
+    env = gymnasium.make(GYM_ENV_IDS.get(env_name, env_name),
+                         render_mode="rgb_array")
+    try:
+        obs, _ = env.reset(seed=seed)
+        sac = SAC(int(np.prod(env.observation_space.shape)),
+                  int(np.prod(env.action_space.shape)), SACConfig(),
+                  net_size=int(variant.get("policy_net_size", 256)),
+                  num_hidden_layers=int(variant.get(
+                      "policy_num_hidden_layers", 2)),
+                  device=device)
+        algo_state = restore_subtree(variant["policy_checkpoint"],
+                                     sac.init(0))
+
+        def act(o):
+            x = torch.as_tensor(np.asarray(o, np.float32), device=device)
+            return sac.act(algo_state, x[None],
+                           deterministic=True)[0].cpu().numpy()
+
+        num_rollouts = int(variant.get("num_rollouts", 1))
+        max_path_length = int(variant.get(
+            "max_path_length", rl.get("max_path_length", 1000)))
+        fps = int(variant.get("fps", round(1.0 / env.unwrapped.dt)))
+        for r in range(num_rollouts):
+            obs, _ = env.reset(seed=seed + r)
+            frames, ret = [env.render()], 0.0
+            for _ in range(max_path_length):
+                obs, rew, term, trunc, _ = env.step(act(obs))
+                ret += float(rew)
+                frames.append(env.render())
+                if term or trunc:
+                    break
+            out = save_video(
+                np.stack(frames),
+                os.path.join(logger.log_dir, f"rollout_{r}.mp4"), fps=fps)
+            logger.log(f"rollout {r}: return {ret:.1f}, "
+                       f"{len(frames)} frames -> {out}")
+            logger.record_tabular(f"Return_{r}", ret)
+        logger.dump_tabular(0)
+    finally:
+        env.close()
+        logger.close()
+
+
+# every name of the JAX table (experiments.py:2188-2210)
 EXPERIMENTS: Dict[str, Callable] = {
     "sac": run_sac,
     "sac_v": run_sac_v,
@@ -1819,8 +2269,6 @@ EXPERIMENTS: Dict[str, Callable] = {
     "sac_ae": run_sac_ae,
     "sac_rad": run_sac_ae,
     "sac_curl": run_sac_ae,
-    **{name: _unported_run(name, item) for name, item in (
-        ("sac_vmap_seeds", "2.10"),
-        ("render_policy", "2.10"),
-    )},
+    "sac_vmap_seeds": run_sac_vmapped_seeds,
+    "render_policy": run_render_policy,
 }

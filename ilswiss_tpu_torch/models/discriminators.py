@@ -1,5 +1,6 @@
 """Adversarial-IL discriminators (counterpart:
-ilswiss_tpu/models/discriminators.py; `resolve_act` and `MLPDisc`).
+ilswiss_tpu/models/discriminators.py; `resolve_act`, `MLPDisc`,
+`CNNDisc`, `ResNetAIRLDisc`).
 
 `MLPDisc` is the reference architecture (simple_disc_models.py:8-48):
 Linear -> [BatchNorm] -> act blocks, then a scalar logit clamped to
@@ -9,9 +10,10 @@ port's own `BatchNorm` with flax's semantics, not `torch.nn.BatchNorm1d`,
 which updates its running variance with the unbiased batch variance and
 momentum 0.1 and so drifts from the JAX discriminator after one update.
 `CNNDisc` is the visual discriminator of (image, action) pairs
-(reference cnn_disc_models.py:7-77), NHWC as in the JAX package.  The JAX
-package's `ResNetAIRLDisc` has no caller there and is listed under
-ROADMAP.md section 1 item 2.10.
+(reference cnn_disc_models.py:7-77), NHWC as in the JAX package.
+`ResNetAIRLDisc` is the residual MLP of the reference's
+simple_disc_models.py:51+; nothing in the JAX package calls it, and
+nothing in the port does.
 """
 
 from __future__ import annotations
@@ -198,3 +200,61 @@ class CNNDisc(nn.Module):
                 getattr(self, f"dense_{i}")(x)))
         x = self.logit(x)
         return torch.clamp(x, -self.clamp_magnitude, self.clamp_magnitude)
+
+
+class ResNetAIRLDisc(nn.Module):
+    """The residual MLP discriminator (JAX `ResNetAIRLDisc`,
+    discriminators.py:97-123): `embed` -> [BatchNorm `bn_in`] -> act, then
+    num_layer_blocks residual blocks x + act([BatchNorm `res_i_bn`]
+    (Dense `res_i_a`(x))), then a logit clamped to +-clamp_magnitude;
+    [B, input_size] -> [B, 1].  BatchNorm as `MLPDisc`'s (`train`,
+    `stats`, `update_batch_stats`)."""
+
+    def __init__(self, input_size: int, generator: torch.Generator,
+                 num_layer_blocks: int = 2, hid_dim: int = 100,
+                 hid_act: str = "tanh", use_bn: bool = False,
+                 clamp_magnitude: float = 10.0):
+        super().__init__()
+        self.act = resolve_act(hid_act)
+        self.num_layer_blocks = num_layer_blocks
+        self.use_bn = use_bn
+        self.clamp_magnitude = clamp_magnitude
+        self.embed = nn.Linear(input_size, hid_dim)
+        _lecun_normal_(self.embed, generator)
+        if use_bn:
+            self.bn_in = BatchNorm(hid_dim)
+        for i in range(num_layer_blocks):
+            layer = nn.Linear(hid_dim, hid_dim)
+            _lecun_normal_(layer, generator)
+            self.add_module(f"res_{i}_a", layer)
+            if use_bn:
+                self.add_module(f"res_{i}_bn", BatchNorm(hid_dim))
+        self.logit = nn.Linear(hid_dim, 1)
+        _lecun_normal_(self.logit, generator)
+
+    def batch_norms(self) -> List[BatchNorm]:
+        if not self.use_bn:
+            return []
+        return [self.bn_in] + [getattr(self, f"res_{i}_bn")
+                               for i in range(self.num_layer_blocks)]
+
+    def forward(self, x: torch.Tensor, train: bool = True,
+                stats: List[Tuple[torch.Tensor, torch.Tensor]] | None = None
+                ) -> torch.Tensor:
+        x = self.embed(x)
+        if self.use_bn:
+            x = self.bn_in(x, train, stats)
+        x = self.act(x)
+        for i in range(self.num_layer_blocks):
+            h = getattr(self, f"res_{i}_a")(x)
+            if self.use_bn:
+                h = getattr(self, f"res_{i}_bn")(h, train, stats)
+            x = x + self.act(h)
+        x = self.logit(x)
+        return torch.clamp(x, -self.clamp_magnitude, self.clamp_magnitude)
+
+    def update_batch_stats(
+            self, stats: List[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """As `MLPDisc.update_batch_stats`."""
+        for bn, (mean, var) in zip(self.batch_norms(), stats):
+            bn.update(mean, var)

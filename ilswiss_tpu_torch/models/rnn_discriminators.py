@@ -1,5 +1,5 @@
-"""Trajectory-window discriminator (counterpart:
-ilswiss_tpu/models/rnn_discriminators.py; `RNNDisc`).
+"""Trajectory-window and image discriminators (counterpart:
+ilswiss_tpu/models/rnn_discriminators.py; `RNNDisc`, `CNNDisc`).
 
 The reference's rnn_disc_models.py:71-86 as the JAX package built it:
 a ReLU input linear `embed`, `num_layers` recurrences, each a forward
@@ -29,6 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ilswiss_tpu_torch.models.discriminators import _TRUNC_STD
+from ilswiss_tpu_torch.models.encoders import (
+    conv_out_dim, lecun_normal_, normalize_pixels,
+)
 
 
 @torch.no_grad()
@@ -172,3 +175,45 @@ class RNNDisc(nn.Module):
         logits = self.logit(x)
         return torch.clamp(logits, -self.clamp_magnitude,
                            self.clamp_magnitude)
+
+
+class CNNDisc(nn.Module):
+    """The image discriminator of this module in the JAX package
+    (rnn_discriminators.py:61-81), not AdvIRL's `discriminators.CNNDisc`:
+    frames [B, H, W, C] (uint8-range batches divided by 255, as the pixel
+    encoder's `normalize_pixels`) -> num_layers 3x3 VALID convs `conv{i}`
+    (stride 2, then 1) with ReLU, flattened in (h, w, c) order -> Dense
+    `fc` -> ReLU -> `logit`, clamped to +-clamp_magnitude: [B, 1].  flax's
+    inits (lecun_normal kernels, zero biases) from the caller's
+    generator.  Nothing in the JAX package's runs calls it."""
+
+    def __init__(self, obs_shape, generator: torch.Generator,
+                 num_filters: int = 32, num_layers: int = 3,
+                 hid_dim: int = 128, clamp_magnitude: float = 10.0):
+        super().__init__()
+        self.num_layers = num_layers
+        self.clamp_magnitude = clamp_magnitude
+        h, _, c = obs_shape
+        width = c
+        for i in range(num_layers):
+            conv = nn.Conv2d(width, num_filters, 3)
+            lecun_normal_(conv.weight, width * 9, generator)
+            with torch.no_grad():
+                conv.bias.zero_()
+            self.add_module(f"conv{i}", conv)
+            width = num_filters
+        hw = conv_out_dim(h, num_layers)
+        self.fc = nn.Linear(num_filters * hw * hw, hid_dim)
+        _init_(self.fc, generator, recurrent=False)
+        self.logit = nn.Linear(hid_dim, 1)
+        _init_(self.logit, generator, recurrent=False)
+
+    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
+        x = normalize_pixels(imgs).permute(0, 3, 1, 2)
+        for i in range(self.num_layers):
+            conv = getattr(self, f"conv{i}")
+            x = torch.relu(F.conv2d(x, conv.weight, conv.bias,
+                                    stride=2 if i == 0 else 1))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = self.logit(torch.relu(self.fc(x)))
+        return torch.clamp(x, -self.clamp_magnitude, self.clamp_magnitude)

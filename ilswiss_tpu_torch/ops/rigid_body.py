@@ -29,11 +29,12 @@ The Cholesky factor, W = M^-1 J^T and the row set-up are PyTorch calls; the
 projected Gauss-Seidel sweeps go through `ops/pgs.py` (kernel K4 on a CUDA
 tensor).  Planar models step through ops/planar_dynamics.py instead.
 
-Not ported (nothing in the port calls them): the stand-alone variants
-`mass_matrix`, `bias_forces`, `passive_forces`, `smooth_force`,
-`constraint_forces`, `contact_gaps`, `kinetic_energy`, `potential_energy`,
-`body_jacobians`, `fluid_forces`; `forward` computes the same quantities
-from its one shared linearization.
+The stand-alone functions `kinetic_energy`, `potential_energy`,
+`body_jacobians`, `mass_matrix`, `bias_forces`, `fluid_forces`,
+`passive_forces`, `contact_gaps`, `constraint_forces` and `smooth_force`
+(which only the JAX package's tests call) each build the shared
+linearization and read what they need of it, as `forward` does; nothing
+in the port's runs calls them.
 """
 
 from __future__ import annotations
@@ -891,6 +892,101 @@ def physics_step(m: RigidModel, q, qd, ctrl, iters: int = 40, f0=None,
         q_, qd_, _, f_, _ = carry
         carry = stepper(m, q_, qd_, ctrl, m.timestep, iters, f_, solve)
     return carry
+
+
+# --------------------------------------------------------------------------
+# Stand-alone quantities (JAX rigid_body.py:385-520, 555-565, 685-727, 794)
+# --------------------------------------------------------------------------
+
+
+def kinetic_energy(m: RigidModel, q, qd):
+    """[B]: 1/2 sum_b m_b |v_com|^2 + 1/2 w_b . I_b w_b (in each body's
+    principal-inertia frame) + 1/2 sum_j armature_j qd_j^2."""
+    c = m.consts(q.dtype, q.device)
+    lin = _linearization(m, q)
+    vcom, omega = _motion_from(lin, qd)
+    Ri = torch.matmul(lin["R"], c.imat)
+    wl = torch.matmul(Ri.transpose(-1, -2), omega[..., None])[..., 0]
+    ke = 0.5 * torch.sum(c.mass * torch.sum(vcom * vcom, -1), -1)
+    ke = ke + 0.5 * torch.sum(c.inertia * wl * wl, (-1, -2))
+    return ke + 0.5 * torch.sum(torch.diagonal(c.armature_diag) * qd * qd,
+                                -1)
+
+
+def potential_energy(m: RigidModel, q):
+    """[B]: -sum_b m_b com_b . g."""
+    c = m.consts(q.dtype, q.device)
+    R, p = fk(m, q)
+    com = p + torch.matmul(R, c.ipos[:, :, None])[..., 0]
+    return -torch.sum(c.mass * torch.matmul(com, c.gravity), -1)
+
+
+def body_jacobians(m: RigidModel, q):
+    """The CoM linear and world angular velocity Jacobians with respect to
+    qd, Jv and Jw [B, nb, 3, nv]."""
+    lin = _linearization(m, q)
+    return lin["Jv"], lin["Jw"]
+
+
+def mass_matrix(m: RigidModel, q):
+    """M(q) [B, nv, nv] (mj_fullM)."""
+    return _mass_from(m, _linearization(m, q), q.dtype)[0]
+
+
+def bias_forces(m: RigidModel, q, qd):
+    """Coriolis, centrifugal, gyroscopic and gravity forces [B, nv]
+    (mj_rne with zero acceleration, qfrc_bias)."""
+    c = m.consts(q.dtype, q.device)
+    lin = _linearization(m, q)
+    return _bias_from(m, lin, _world_inertia(c, lin["R"]), q, qd)[0]
+
+
+def fluid_forces(m: RigidModel, q, qd):
+    """MuJoCo's inertia-box fluid forces [B, nv] (zero without a fluid)."""
+    lin = _linearization(m, q)
+    vcom, omega = _motion_from(lin, qd)
+    return _fluid_from(m, lin, vcom, omega, qd)
+
+
+def passive_forces(m: RigidModel, q, qd):
+    """Joint damping and springs, and the fluid forces where the model has
+    a fluid, [B, nv]."""
+    c = m.consts(q.dtype, q.device)
+    out = -c.damping * qd - c.stiffness * (q[:, c.dof_qadr] - c.spring)
+    if m.has_fluid:
+        out = out + fluid_forces(m, q, qd)
+    return out
+
+
+def smooth_force(m: RigidModel, q, qd, ctrl):
+    """Actuation plus passive minus bias forces, [B, nv]."""
+    return actuation(m, ctrl) + passive_forces(m, q, qd) - bias_forces(
+        m, q, qd)
+
+
+def contact_gaps(m: RigidModel, q):
+    """The surface distance of each candidate contact to the floor,
+    [B, ncon]."""
+    c = m.consts(q.dtype, q.device)
+    R, p = fk(m, q)
+    return _contact_frames(m, c, R, p)[0]
+
+
+def constraint_forces(m: RigidModel, q, qd, M, qacc_smooth,
+                      iters: int = 40, f0=None, solve=pgs_solve):
+    """The pyramidal contact and limit rows solved by warm-startable
+    projected Gauss-Seidel (every row force >= 0) from the mass matrix M
+    [B, nv, nv] and the unconstrained acceleration [B, nv]: returns
+    (qfrc_constraint [B, nv], row forces [B, nr]); `f0` warm-starts the
+    sweeps (zeros if None), `solve` as `forward`'s."""
+    B = q.shape[0]
+    if m.nrow == 0:
+        return torch.zeros_like(qd), q.new_zeros((B, 0))
+    J, aref, d, active = _rows_from(m, _linearization(m, q), q, qd)
+    if f0 is None:
+        f0 = q.new_zeros((B, m.nrow))
+    return _solve_rows(m, torch.linalg.cholesky(M), J, aref, d, active,
+                       qacc_smooth, iters, f0, solve)
 
 
 # --------------------------------------------------------------------------

@@ -37,13 +37,19 @@ def make_evaluator(vec_env: VectorEnv, act_fn: Callable,
             returns = returns + tr.reward * running
             lengths = lengths + running
             running = running * (1.0 - tr.done.to(torch.float32))
-        return {
-            "AverageReturn": float(returns.mean()),
-            "MaxReturn": float(returns.max()),
-            "MinReturn": float(returns.min()),
-            # population std, as jnp.std (ddof 0)
-            "StdReturn": float(returns.std(correction=0)),
-            "AvgPathLength": float(lengths.mean()),
-        }
+        return return_stats(returns, lengths)
 
     return evaluate
+
+
+def return_stats(returns: torch.Tensor, lengths: torch.Tensor
+                 ) -> Dict[str, float]:
+    """The reference's evaluation keys from per-env returns and lengths."""
+    return {
+        "AverageReturn": float(returns.mean()),
+        "MaxReturn": float(returns.max()),
+        "MinReturn": float(returns.min()),
+        # population std, as jnp.std (ddof 0)
+        "StdReturn": float(returns.std(correction=0)),
+        "AvgPathLength": float(lengths.mean()),
+    }

@@ -109,6 +109,14 @@ def collector_noise(seed: int, env_steps: int) -> Noise:
                  "cpu")
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a host env's observation dtype (numpy, as
+    `DMCVectorEnv.obs_dtype`, or torch)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
 def mean_metrics(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
     """The mean of each metric over a list of metric dicts of 0-d tensors
     on one device, fetched in one copy."""
@@ -182,7 +190,8 @@ class HostOffPolicyLoop:
                 self.config.replay_capacity, env.observation_size,
                 env.action_size, write_batch=env.num_envs,
                 device=self.device,
-                obs_dtype=getattr(env, "obs_dtype", torch.float32)),
+                obs_dtype=torch_dtype(getattr(env, "obs_dtype",
+                                              np.float32))),
             algo_state=self.algo.init(seed),
             total_env_steps=0,
             seed=seed)

@@ -274,6 +274,13 @@ class OffPolicyLoop:
     def _train_iter(self, runner: RunnerState
                     ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
         runner = self._collect_iter(runner, random_actions=False)
+        return self.learn(runner)
+
+    def learn(self, runner: RunnerState
+              ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
+        """The learner's half of a training iteration, after its
+        collection: `train_call`, one `train_chain`, or K eager steps;
+        returns (runner, the iteration's metric means on the device)."""
         cfg = self.config
         if hasattr(self.algo, "train_call"):
             # an algorithm that owns its update schedule (AdvIRL's nested

@@ -4,7 +4,8 @@ reference: the pins of each mode of its products, the rule for its bf16
 mode against its plain version at full width, and a way to run the loop's
 fused chain in float32 mode; the bit-equality of two checkpoint trees
 (`tree_diff`), which says that a resumed run is the uninterrupted one; and
-`DeviceEnvAsHost`, a stand-in host env for machines without MuJoCo.
+`DeviceEnvAsHost` and `PixelEnvAsHost`, stand-in host envs for machines
+without MuJoCo or dm_control.
 
 Pins (`K2_PINS`, (rtol, atol) per group of the chain's output).  The
 float32 mode keeps those of tests/test_fused_sac.py:91-121.  The bf16 mode
@@ -208,3 +209,33 @@ class DeviceEnvAsHost:
 
     def close(self) -> None:
         pass
+
+
+class PixelEnvAsHost(DeviceEnvAsHost):
+    """A stand-in for `envs/host_dmc.py::DMCVectorEnv` where dm_control
+    does not render (chip_smoke.py's phase 19, tests): the port's
+    pendulum_pixels env on the CPU at `height` px behind the same numpy
+    contract and uint8 frames, each of its `frame_stack` gray frames
+    repeated to three channels, so that an observation is [height, height,
+    3 * frame_stack] uint8 (newest frame last), round(255 x) of the
+    analytic frames.  It takes DMCVectorEnv's arguments (the domain, the
+    task and the rest are ignored); episodes end by the time limit only
+    (`max_episode_steps`, default 1000, DMC's), terminal always False.  It
+    is test support: no registry or launcher names it."""
+
+    obs_dtype = np.uint8
+
+    def __init__(self, num_envs: int, seed: int = 0, height: int = 84,
+                 width: int | None = None, frame_stack: int = 3,
+                 max_episode_steps: int | None = None, **_):
+        super().__init__(
+            "pendulum_pixels", num_envs, seed=seed,
+            max_episode_steps=max_episode_steps or 1000,
+            env_kwargs={"image_size": height, "frame_stack": frame_stack})
+        self.name = "dmc-standin-pendulum_pixels"
+        self.observation_size = (height, height, 3 * frame_stack)
+
+    @staticmethod
+    def _np(obs):
+        frames = torch.round(obs * 255.0).to(torch.uint8)
+        return torch.repeat_interleave(frames, 3, dim=-1).numpy().copy()

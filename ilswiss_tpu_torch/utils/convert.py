@@ -56,6 +56,15 @@ maps:
     (r + 1) * B of the envs, ring shard r and its counters; the
     replicated learner state goes to every rank.
 
+  * a JAX seed-vmapped runner (`run_sac_vmapped_seeds`) stacks every
+    leaf over a leading seed axis [N, ...]; `stacked_slice` takes seed i
+    of any such tree, and seed i's port runner is a one-seed runner
+    (runtime/seeds.py).
+
+  * `ResNetAIRLDisc` keeps flax's names (`embed`, `bn_in`, `res_i_a`,
+    `res_i_bn`, `logit`), the image `CNNDisc` of rnn_discriminators.py
+    its (`conv{i}`, `fc`, `logit`).
+
 The `*_to_numpy` functions go the other way, into the JAX layouts, so a
 test compares like with like.
 """
@@ -64,6 +73,8 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 from typing import Any, Dict, List, Tuple
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -85,11 +96,14 @@ from ilswiss_tpu_torch.data.her import HindsightReplayState
 from ilswiss_tpu_torch.data.replay import ReplayState
 from ilswiss_tpu_torch.envs.base import EnvState
 from ilswiss_tpu_torch.models.bnn import InputNormalizer
-from ilswiss_tpu_torch.models.discriminators import CNNDisc, MLPDisc
+from ilswiss_tpu_torch.models.discriminators import (
+    CNNDisc, MLPDisc, ResNetAIRLDisc,
+)
 from ilswiss_tpu_torch.models.encoders import PixelDecoder, PixelEncoder
 from ilswiss_tpu_torch.models.policies import (
     GaussianPolicy, TanhGaussianPolicy,
 )
+from ilswiss_tpu_torch.models import rnn_discriminators
 from ilswiss_tpu_torch.models.rnn_discriminators import RNNDisc
 from ilswiss_tpu_torch.runtime.loop import RunnerState
 from ilswiss_tpu_torch.runtime.host_loop import (
@@ -98,6 +112,7 @@ from ilswiss_tpu_torch.runtime.host_loop import (
 from ilswiss_tpu_torch.runtime.onpolicy import (
     OnPolicyLoop, OnPolicyRunnerState,
 )
+from ilswiss_tpu_torch.runtime.seeds import SeedsRunnerState
 from ilswiss_tpu_torch.utils.running_stats import RunningMeanStd
 
 # (port tensor, flax path, layout); the lists that feed optax.flatten's
@@ -911,3 +926,105 @@ def cnn_disc_from_jax(disc: CNNDisc, variables) -> None:
 
 def cnn_disc_to_numpy(disc: CNNDisc) -> Dict[str, Any]:
     return {"params": _dump_leaves(_cnn_disc_leaves(disc))}
+
+
+def _resnet_disc_leaves(disc: ResNetAIRLDisc) -> List[_Leaf]:
+    names = ["embed"] + [f"res_{i}_a" for i in range(disc.num_layer_blocks)]
+    out = []
+    for name in names + ["logit"]:
+        layer = getattr(disc, name)
+        out += [(layer.weight, (name, "kernel"), True),
+                (layer.bias, (name, "bias"), False)]
+    for name, bn in zip(_resnet_bn_names(disc), disc.batch_norms()):
+        out += [(bn.scale, (name, "scale"), False),
+                (bn.bias, (name, "bias"), False)]
+    return out
+
+
+def _resnet_bn_names(disc: ResNetAIRLDisc) -> List[str]:
+    if not disc.use_bn:
+        return []
+    return ["bn_in"] + [f"res_{i}_bn" for i in range(disc.num_layer_blocks)]
+
+
+def _resnet_bn_stat_leaves(disc: ResNetAIRLDisc) -> List[_Leaf]:
+    return [(getattr(bn, s), (name, s), False)
+            for name, bn in zip(_resnet_bn_names(disc), disc.batch_norms())
+            for s in ("mean", "var")]
+
+
+def resnet_disc_from_jax(disc: ResNetAIRLDisc, variables) -> None:
+    """A flax ResNetAIRLDisc's variables ({"params"[, "batch_stats"]})
+    into `disc`, in place."""
+    _load_leaves(_resnet_disc_leaves(disc), variables["params"])
+    if disc.use_bn:
+        _load_leaves(_resnet_bn_stat_leaves(disc), variables["batch_stats"])
+
+
+def resnet_disc_to_numpy(disc: ResNetAIRLDisc) -> Dict[str, Any]:
+    out = {"params": _dump_leaves(_resnet_disc_leaves(disc))}
+    if disc.use_bn:
+        out["batch_stats"] = _dump_leaves(_resnet_bn_stat_leaves(disc))
+    return out
+
+
+def _image_disc_leaves(disc: rnn_discriminators.CNNDisc) -> List[_Leaf]:
+    out = []
+    for i in range(disc.num_layers):
+        conv = getattr(disc, f"conv{i}")
+        out += [(conv.weight, (f"conv{i}", "kernel"), "conv"),
+                (conv.bias, (f"conv{i}", "bias"), False)]
+    for name in ("fc", "logit"):
+        layer = getattr(disc, name)
+        out += [(layer.weight, (name, "kernel"), True),
+                (layer.bias, (name, "bias"), False)]
+    return out
+
+
+def image_disc_from_jax(disc: rnn_discriminators.CNNDisc, variables
+                        ) -> None:
+    """A flax rnn_discriminators.CNNDisc's variables ({"params"}) into
+    `disc`, in place."""
+    _load_leaves(_image_disc_leaves(disc), variables["params"])
+
+
+def image_disc_to_numpy(disc: rnn_discriminators.CNNDisc
+                        ) -> Dict[str, Any]:
+    return {"params": _dump_leaves(_image_disc_leaves(disc))}
+
+
+# --- the seed-vmapped runner --------------------------------------------------
+def stacked_slice(tree, i: int):
+    """Seed i of a tree whose array leaves carry a leading seed axis:
+    dataclasses (flax structs), named tuples (optax states), tuples,
+    lists and dicts rebuilt around each leaf's [i]; None and scalars that
+    are not arrays kept."""
+    if isinstance(tree, np.ndarray) or hasattr(tree, "__array__"):
+        return np.asarray(tree)[i]
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: stacked_slice(getattr(tree, f.name), i)
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(stacked_slice(x, i) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(stacked_slice(x, i) for x in tree)
+    if isinstance(tree, dict):
+        return {k: stacked_slice(v, i) for k, v in tree.items()}
+    return tree
+
+
+def seeds_runner_from_jax(loop, jrunner, noises) -> SeedsRunnerState:
+    """The SeedsRunnerState, on `loop`'s device, of a JAX seed-vmapped
+    off-policy runner: seed i's env rows, ring, trainer state and env-step
+    count from slice i, drawing from noises[i]."""
+    runners = []
+    for i, noise in enumerate(noises):
+        r = stacked_slice(jrunner, i)
+        runners.append(RunnerState(
+            noise=noise,
+            env_state=env_state_from_jax(r.env_state, loop.loop.device),
+            replay=replay_from_jax(r.replay, loop.loop.device),
+            algo_state=_algo_state_from_jax(loop.algo, r.algo_state),
+            total_env_steps=int(np.asarray(r.total_env_steps))))
+    return SeedsRunnerState(runners)

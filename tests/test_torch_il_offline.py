@@ -772,14 +772,34 @@ def test_load_params_is_refused(tmp_path, name):
 
 
 def test_unported_gen_expert_branches_name_their_items(tmp_path):
-    """The DMC pixel branch renders on the host (envs/host_dmc.py), the
-    half of item 2.8 not ported yet; the gymnasium branch is ported, and
-    asks, as the JAX one, for a scripted expert that exists."""
+    """The DMC pixel branch renders on the host (envs/host_dmc.py): it
+    builds the DMC env with the spec's frame stack and env_kwargs (the
+    launcher's max_episode_steps dropped, DMC's own limit kept) and
+    restores its SAC-AE expert whatever `use_scripted_policy` says, as the
+    JAX branch; the gymnasium branch asks, as the JAX one, for a scripted
+    expert that exists."""
+    from ilswiss_tpu_torch.envs import host_dmc
+
     base = {"seed": 0, "log_dir": str(tmp_path / "log"),
             "print_to_console": False, "use_scripted_policy": True}
-    with pytest.raises(NotImplementedError, match="item 2.8"):
-        pexp.run_gen_expert(dict(base, env_specs={"env_name": "dmc"}),
-                            device="cpu")
+    built = []
+
+    class Reached(Exception):
+        pass
+
+    def dmc(**kwargs):
+        built.append(kwargs)
+        raise Reached
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(host_dmc, "DMCVectorEnv", dmc)
+        with pytest.raises(Reached):
+            pexp.run_gen_expert(dict(base, env_specs={
+                "env_name": "dmc", "frame_stack": 2, "env_num": 3,
+                "env_kwargs": {"domain_name": "cartpole", "height": 32,
+                               "visualize_reward": False}}), device="cpu")
+    assert built == [{"num_envs": 3, "seed": 0, "frame_stack": 2,
+                      "domain_name": "cartpole", "height": 32}]
     with pytest.raises(KeyError, match="no scripted expert for "
                                        "'lunarlandercont'"):
         pexp.run_gen_expert(dict(base, env_specs={"env_name": "lunarlandercont"}),

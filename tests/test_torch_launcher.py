@@ -212,16 +212,36 @@ def test_routing_raises_naming_the_roadmap_item(tmp_path):
     # has no host name
     with pytest.raises(KeyError, match="Unknown env"):
         pexp.run_sac_v(_variant(tmp_path, "lunarlandercont"), device="cpu")
-    # the DMC pixel envs and gen_expert's DMC branch render on the host
-    for name in ("sac_ae", "sac_rad", "sac_curl", "gen_expert"):
-        with pytest.raises(NotImplementedError, match="item 2.8"):
-            pexp.EXPERIMENTS[name](_variant(tmp_path, "dmc"), device="cpu")
+    # `env_name: dmc` takes the DMC pixel branches, which render on the
+    # host: SAC-AE, RAD and CURL reach `_run_host_sac_ae`, gen_expert
+    # builds the DMC env (envs/host_dmc.py)
+    class Reached(Exception):
+        pass
+
+    def reached(*args, **kwargs):
+        raise Reached(args[1:5] if len(args) > 4 else args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pexp, "_run_host_sac_ae", reached)
+        mp.setattr(pexp, "_dmc_env", reached)
+        for name in ("sac_ae", "sac_rad", "sac_curl", "gen_expert"):
+            with pytest.raises(Reached):
+                pexp.EXPERIMENTS[name](_variant(tmp_path, "dmc"),
+                                       device="cpu")
     with pytest.raises(ValueError, match="unknown env"):
         run(_variant(tmp_path, "no_such_env"), device="cpu")
-    # every JAX experiment name is known; the unported ones raise
+    # every JAX experiment name reaches a runner of the port's launcher
+    # module, item 2.10's names among them; none of them is a stub
     assert set(pexp.EXPERIMENTS) == set(jexp.EXPERIMENTS)
-    with pytest.raises(NotImplementedError, match="item 2.10"):
-        pexp.EXPERIMENTS["render_policy"](_variant(tmp_path), device="cpu")
+    assert pexp.EXPERIMENTS["render_policy"] is pexp.run_render_policy
+    assert pexp.EXPERIMENTS["sac_vmap_seeds"] is pexp.run_sac_vmapped_seeds
+    for name, fn in pexp.EXPERIMENTS.items():
+        assert getattr(pexp, fn.__name__) is fn, name
+    import inspect
+    assert "NotImplementedError" not in inspect.getsource(pexp)
+    with pytest.raises(ValueError, match="on-device env"):
+        pexp.EXPERIMENTS["sac_vmap_seeds"](_variant(tmp_path, "Hopper-v5"),
+                                           device="cpu")
     if not torch.cuda.is_available():      # the default device is the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(_variant(tmp_path))
