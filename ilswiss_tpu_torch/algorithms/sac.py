@@ -52,6 +52,7 @@ from ilswiss_tpu_torch.ops.fused_mlp import fused_gaussian_policy_forward
 from ilswiss_tpu_torch.ops.fused_sac import fused_sac_chain
 from ilswiss_tpu_torch.parallel.distributed import all_reduce_mean
 from ilswiss_tpu_torch.utils.device import resolve_device
+from ilswiss_tpu_torch.utils.profiling import span
 from ilswiss_tpu_torch.utils.pytree import (
     copy_into, copy_params, soft_update,
 )
@@ -267,15 +268,18 @@ class SAC:
         `train_step` path takes them (for each step `replay`, then
         `train`), so both paths see the same batches and noise."""
         shape = (batch_size, self.action_size)
-        u, eps_next, eps_new = [], [], []
-        for _ in range(num_steps):
-            u.append(noise.replay(batch_size))
-            e_next, e_new = noise.train(shape)
-            eps_next.append(e_next)
-            eps_new.append(e_new)
-        batches = replay_sample(replay, torch.stack(u))
-        return fused_sac_chain(self, state, batches, torch.stack(eps_next),
-                               torch.stack(eps_new))
+        with span("learner.chain"):
+            with span("learner.draws"):
+                u, eps_next, eps_new = [], [], []
+                for _ in range(num_steps):
+                    u.append(noise.replay(batch_size))
+                    e_next, e_new = noise.train(shape)
+                    eps_next.append(e_next)
+                    eps_new.append(e_new)
+                u, eps_next, eps_new = (torch.stack(u), torch.stack(eps_next),
+                                        torch.stack(eps_new))
+            batches = replay_sample(replay, u)
+            return fused_sac_chain(self, state, batches, eps_next, eps_new)
 
     def train_step(self, state: SACState, batch: Dict[str, torch.Tensor],
                    eps_next: torch.Tensor, eps_new: torch.Tensor

@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 
 from ilswiss_tpu_torch.envs.vector import Transition
+from ilswiss_tpu_torch.utils.profiling import span
 
 _EP_STRIDE = 1 << 20  # episodes-per-env headroom for unique ids
 
@@ -87,24 +88,26 @@ def replay_add(state: ReplayState, tr: Transition) -> ReplayState:
         raise ValueError(f"write batch {batch} does not fit the ring "
                          f"(capacity {capacity}, "
                          f"write batch {state.env_ep.shape[0]})")
-    updates = {
-        "obs": tr.obs,
-        "action": tr.action,
-        "reward": tr.reward,
-        "next_obs": tr.next_obs,
-        "terminal": tr.terminal.to(torch.float32),
-    }
-    env_idx = torch.arange(batch, dtype=torch.int32, device=tr.reward.device)
-    updates["ep_id"] = env_idx * _EP_STRIDE + state.env_ep
-    first = min(batch, capacity - state.ptr)
-    for k, v in updates.items():
-        dst = state.ep_id if k == "ep_id" else state.data[k]
-        if first == batch:
-            dst[state.ptr:state.ptr + batch] = v
-        else:
-            dst[state.ptr:] = v[:first]
-            dst[:batch - first] = v[first:]
-    state.env_ep += tr.done.to(torch.int32)
+    with span("replay.add"):
+        updates = {
+            "obs": tr.obs,
+            "action": tr.action,
+            "reward": tr.reward,
+            "next_obs": tr.next_obs,
+            "terminal": tr.terminal.to(torch.float32),
+        }
+        env_idx = torch.arange(batch, dtype=torch.int32,
+                               device=tr.reward.device)
+        updates["ep_id"] = env_idx * _EP_STRIDE + state.env_ep
+        first = min(batch, capacity - state.ptr)
+        for k, v in updates.items():
+            dst = state.ep_id if k == "ep_id" else state.data[k]
+            if first == batch:
+                dst[state.ptr:state.ptr + batch] = v
+            else:
+                dst[state.ptr:] = v[:first]
+                dst[:batch - first] = v[first:]
+        state.env_ep += tr.done.to(torch.int32)
     state.ptr = (state.ptr + batch) % capacity
     state.size = min(state.size + batch, capacity)
     return state
@@ -138,8 +141,9 @@ def replay_sample(state: ReplayState, u: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:
     """Uniform gather over the valid rows: row min(int(u * size), size - 1)
     for each uniform in `u` [batch]."""
-    idx = _rows(state, u)
-    return {k: v[idx] for k, v in state.data.items()}
+    with span("replay.gather"):
+        idx = _rows(state, u)
+        return {k: v[idx] for k, v in state.data.items()}
 
 
 def _rows(state: ReplayState, u: torch.Tensor) -> torch.Tensor:
@@ -160,16 +164,18 @@ def replay_sample_window(state: ReplayState, u: torch.Tensor, window: int
     up to it has the first step's episode id and lies below `size`."""
     capacity = state.data["reward"].shape[0]
     stride = state.env_ep.shape[0]
-    idx = _rows(state, u)
-    offs = (idx[:, None] + stride * torch.arange(
-        window, dtype=torch.int64, device=idx.device)[None, :]) % capacity
-    same_ep = state.ep_id[offs] == state.ep_id[idx][:, None]
-    in_range = offs < state.size
-    valid = torch.cumprod(torch.logical_and(same_ep, in_range).to(
-        torch.int32), dim=1).to(torch.bool)
-    out = {k: v[offs] for k, v in state.data.items()}
-    out["valid"] = valid
-    return out
+    with span("replay.gather"):
+        idx = _rows(state, u)
+        offs = (idx[:, None] + stride * torch.arange(
+            window, dtype=torch.int64, device=idx.device)[None, :]) \
+            % capacity
+        same_ep = state.ep_id[offs] == state.ep_id[idx][:, None]
+        in_range = offs < state.size
+        valid = torch.cumprod(torch.logical_and(same_ep, in_range).to(
+            torch.int32), dim=1).to(torch.bool)
+        out = {k: v[offs] for k, v in state.data.items()}
+        out["valid"] = valid
+        return out
 
 
 def replay_sample_nstep(state: ReplayState, u: torch.Tensor, n_step: int,
@@ -182,29 +188,33 @@ def replay_sample_nstep(state: ReplayState, u: torch.Tensor, n_step: int,
     lockstep write).  A row's lookahead stops before a row of another
     episode id (an episode boundary, the write cursor, an unwritten row)
     and after a terminal, as the JAX function's scan does."""
-    capacity = state.data["reward"].shape[0]
-    stride = state.env_ep.shape[0]
-    idx = _rows(state, u)
-    base_ep = state.ep_id[idx]
-    reward_acc = torch.zeros(idx.shape, dtype=torch.float32,
-                             device=idx.device)
-    valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
-    last_off = torch.zeros(idx.shape, dtype=torch.int32, device=idx.device)
-    for k in range(n_step):
-        off_idx = (idx + k * stride) % capacity
-        valid_k = torch.logical_and(valid, state.ep_id[off_idx] == base_ep)
-        reward_acc = reward_acc + torch.where(
-            valid_k, (discount ** k) * state.data["reward"][off_idx], 0.0)
-        last_off = torch.where(valid_k, k, last_off)
-        # no extension past a terminal inside the window
-        valid = torch.logical_and(
-            valid_k, torch.logical_not(state.data["terminal"][off_idx] > 0.5))
-    end_idx = (idx + last_off.to(torch.int64) * stride) % capacity
-    return {
-        "obs": state.data["obs"][idx],
-        "action": state.data["action"][idx],
-        "reward": reward_acc,
-        "next_obs": state.data["next_obs"][end_idx],
-        "terminal": state.data["terminal"][end_idx],
-        "n_step_used": last_off + 1,
-    }
+    with span("replay.gather"):
+        capacity = state.data["reward"].shape[0]
+        stride = state.env_ep.shape[0]
+        idx = _rows(state, u)
+        base_ep = state.ep_id[idx]
+        reward_acc = torch.zeros(idx.shape, dtype=torch.float32,
+                                 device=idx.device)
+        valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        last_off = torch.zeros(idx.shape, dtype=torch.int32,
+                               device=idx.device)
+        for k in range(n_step):
+            off_idx = (idx + k * stride) % capacity
+            valid_k = torch.logical_and(valid,
+                                        state.ep_id[off_idx] == base_ep)
+            reward_acc = reward_acc + torch.where(
+                valid_k, (discount ** k) * state.data["reward"][off_idx],
+                0.0)
+            last_off = torch.where(valid_k, k, last_off)
+            # no extension past a terminal inside the window
+            valid = torch.logical_and(valid_k, torch.logical_not(
+                state.data["terminal"][off_idx] > 0.5))
+        end_idx = (idx + last_off.to(torch.int64) * stride) % capacity
+        return {
+            "obs": state.data["obs"][idx],
+            "action": state.data["action"][idx],
+            "reward": reward_acc,
+            "next_obs": state.data["next_obs"][end_idx],
+            "terminal": state.data["terminal"][end_idx],
+            "n_step_used": last_off + 1,
+        }

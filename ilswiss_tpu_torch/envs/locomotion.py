@@ -45,6 +45,7 @@ from ilswiss_tpu_torch.ops.planar_dynamics import (
 from ilswiss_tpu_torch.ops.rigid_body import (
     RigidModel, actuation, cfrc_ext, com_quantities, site_positions,
 )
+from ilswiss_tpu_torch.utils.profiling import span
 
 _MODELS: dict[str, RigidModel] = {}
 
@@ -111,9 +112,11 @@ class LocomotionEnv(Environment):
         q0, qd0, warm = internal
         q, qd, qfrc_con, warm, _ = physics_step(
             self.model, q0, qd0, action, iters=self.solver_iters, f0=warm)
-        q, qd, warm = q.contiguous(), qd.contiguous(), warm.contiguous()
-        obs = self._obs(q, qd, qfrc_con)
-        reward, terminal = self._reward_terminal(q0, q, qd, qfrc_con, action)
+        with span("env.observe"):
+            q, qd, warm = q.contiguous(), qd.contiguous(), warm.contiguous()
+            obs = self._obs(q, qd, qfrc_con)
+            reward, terminal = self._reward_terminal(q0, q, qd, qfrc_con,
+                                                     action)
         return (q, qd, warm), obs, reward, terminal
 
 
@@ -250,16 +253,18 @@ class AntDevice(LocomotionEnv):
         q0, qd0, warm = internal
         q, qd, _, warm, (q_ev, _) = physics_step(
             self.model, q0, qd0, action, iters=self.solver_iters, f0=warm)
-        cfrc = cfrc_ext(self.model, q_ev, warm)
-        obs = self._obs(q, qd, cfrc)
-        x_vel = (q[:, 0] - q0[:, 0]) / self.dt
-        healthy = (_all_finite(q) & _all_finite(qd)
-                   & (q[:, 2] >= 0.2) & (q[:, 2] <= 1.0))
-        clipped = torch.clamp(cfrc, -1.0, 1.0)
-        contact_cost = 5e-4 * torch.sum(clipped ** 2, dim=(1, 2))
-        reward = (x_vel + healthy.to(torch.float32)
-                  - 0.5 * torch.sum(action ** 2, dim=-1) - contact_cost)
-        return (q, qd, warm), obs, reward, torch.logical_not(healthy)
+        with span("env.observe"):
+            cfrc = cfrc_ext(self.model, q_ev, warm)
+            obs = self._obs(q, qd, cfrc)
+            x_vel = (q[:, 0] - q0[:, 0]) / self.dt
+            healthy = (_all_finite(q) & _all_finite(qd)
+                       & (q[:, 2] >= 0.2) & (q[:, 2] <= 1.0))
+            clipped = torch.clamp(cfrc, -1.0, 1.0)
+            contact_cost = 5e-4 * torch.sum(clipped ** 2, dim=(1, 2))
+            reward = (x_vel + healthy.to(torch.float32)
+                      - 0.5 * torch.sum(action ** 2, dim=-1) - contact_cost)
+            terminal = torch.logical_not(healthy)
+        return (q, qd, warm), obs, reward, terminal
 
 
 class HumanoidDevice(LocomotionEnv):
@@ -290,21 +295,23 @@ class HumanoidDevice(LocomotionEnv):
 
     def _step(self, internal, action):
         q0, qd0, warm = internal
-        _, _, com_before = com_quantities(self.model, q0, qd0)
         q, qd, _, warm, (q_ev, qd_ev) = physics_step(
             self.model, q0, qd0, action, iters=self.solver_iters, f0=warm)
-        cinert, cvel, _ = com_quantities(self.model, q_ev, qd_ev)
-        _, _, com_after = com_quantities(self.model, q, qd)
-        cfrc = cfrc_ext(self.model, q_ev, warm)
-        obs = self._obs(q, qd, cinert, cvel, actuation(self.model, action),
-                        cfrc)
-        x_vel = (com_after[:, 0] - com_before[:, 0]) / self.dt
-        healthy = (q[:, 2] > 1.0) & (q[:, 2] < 2.0)
-        contact_cost = torch.clamp_max(
-            5e-7 * torch.sum(cfrc ** 2, dim=(1, 2)), 10.0)
-        reward = (1.25 * x_vel + 5.0 * healthy.to(torch.float32)
-                  - 0.1 * torch.sum(action ** 2, dim=-1) - contact_cost)
-        return (q, qd, warm), obs, reward, torch.logical_not(healthy)
+        with span("env.observe"):
+            _, _, com_before = com_quantities(self.model, q0, qd0)
+            cinert, cvel, _ = com_quantities(self.model, q_ev, qd_ev)
+            _, _, com_after = com_quantities(self.model, q, qd)
+            cfrc = cfrc_ext(self.model, q_ev, warm)
+            obs = self._obs(q, qd, cinert, cvel,
+                            actuation(self.model, action), cfrc)
+            x_vel = (com_after[:, 0] - com_before[:, 0]) / self.dt
+            healthy = (q[:, 2] > 1.0) & (q[:, 2] < 2.0)
+            contact_cost = torch.clamp_max(
+                5e-7 * torch.sum(cfrc ** 2, dim=(1, 2)), 10.0)
+            reward = (1.25 * x_vel + 5.0 * healthy.to(torch.float32)
+                      - 0.1 * torch.sum(action ** 2, dim=-1) - contact_cost)
+            terminal = torch.logical_not(healthy)
+        return (q, qd, warm), obs, reward, terminal
 
 
 class AntTruncObsDevice(AntDevice):

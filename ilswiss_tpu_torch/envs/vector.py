@@ -15,6 +15,7 @@ from typing import Any, Tuple
 import torch
 
 from ilswiss_tpu_torch.envs.base import Environment, EnvState
+from ilswiss_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -57,16 +58,19 @@ class VectorEnv:
              ) -> tuple[EnvState, Transition]:
         """Step all envs with policy-space actions in [-1, 1]; envs whose
         episode ended restart from `reset_noise`."""
-        env_action = self.env.scale_action(normalized_action)
-        out = self.env.step(state, env_action)
-        done = out.done
-        fresh = self.env.reset(reset_noise)
-        new_state = EnvState(
-            internal=tuple(_select(done, r, s) for r, s in
-                           zip(fresh.internal, out.state.internal)),
-            obs=_select_obs(done, fresh.obs, out.state.obs),
-            t=_select(done, fresh.t, out.state.t),
-        )
+        with span("env.step"):
+            with span("env.physics"):
+                out = self.env.step(state,
+                                    self.env.scale_action(normalized_action))
+            with span("env.reset"):
+                done = out.done
+                fresh = self.env.reset(reset_noise)
+                new_state = EnvState(
+                    internal=tuple(_select(done, r, s) for r, s in
+                                   zip(fresh.internal, out.state.internal)),
+                    obs=_select_obs(done, fresh.obs, out.state.obs),
+                    t=_select(done, fresh.t, out.state.t),
+                )
         transition = Transition(
             obs=state.obs,
             action=normalized_action,

@@ -56,6 +56,7 @@ import torch
 from ilswiss_tpu_torch.models.distributions import (
     LOG_SIG_MAX, LOG_SIG_MIN, TANH_EPS,
 )
+from ilswiss_tpu_torch.utils.profiling import span
 
 METRIC_NAMES = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
                 "alpha", "q1_pred_mean", "q2_pred_mean", "log_pi_mean")
@@ -386,20 +387,22 @@ def fused_sac_chain(sac, state, batches: Dict[str, torch.Tensor],
     action dimensions, batches over 4096, another `matmul_dtype`) and
     RuntimeError when the launch fails.  See the module docstring for the
     shared Adam step."""
-    reward = batches["reward"]
-    _rounder(matmul_dtype)   # raises for a type the chain does not take
-    if reward.device.type == "cpu":
-        return fused_sac_chain_plain(sac, state, batches, eps_next, eps_new,
-                                     matmul_dtype)
-    if reward.device.type != "cuda":
-        raise ValueError(f"unsupported device {reward.device}")
-    streams, tensors = _kernel_inputs(sac, state, batches, eps_next, eps_new)
-    stream = torch.cuda.current_stream(reward.device).cuda_stream
-    table = _launch(_lib(), sac, state, streams, tensors, stream,
-                    matmul_dtype)
-    fused_sac_chain.launches += 1
-    _advance_counts(state, reward.shape[0], sac.config.train_alpha)
-    return state, {n: table[:, j] for j, n in enumerate(METRIC_NAMES)}
+    with span("learner.launch"):
+        reward = batches["reward"]
+        _rounder(matmul_dtype)   # raises for a type the chain does not take
+        if reward.device.type == "cpu":
+            return fused_sac_chain_plain(sac, state, batches, eps_next,
+                                         eps_new, matmul_dtype)
+        if reward.device.type != "cuda":
+            raise ValueError(f"unsupported device {reward.device}")
+        streams, tensors = _kernel_inputs(sac, state, batches, eps_next,
+                                          eps_new)
+        stream = torch.cuda.current_stream(reward.device).cuda_stream
+        table = _launch(_lib(), sac, state, streams, tensors, stream,
+                        matmul_dtype)
+        fused_sac_chain.launches += 1
+        _advance_counts(state, reward.shape[0], sac.config.train_alpha)
+        return state, {n: table[:, j] for j, n in enumerate(METRIC_NAMES)}
 
 
 fused_sac_chain.launches = 0

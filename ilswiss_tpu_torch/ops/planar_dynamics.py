@@ -39,6 +39,7 @@ import torch
 from ilswiss_tpu_torch.ops.rigid_body import (
     RigidModel, _impedance, _kb, physics_step,
 )
+from ilswiss_tpu_torch.utils.profiling import span
 
 
 # --------------------------------------------------------------------------
@@ -757,17 +758,19 @@ def planar_control_step(pm: PlanarModel, q, qd, ctrl, f0, iters: int):
     tensor launches kernel K1 once in its control-step mode, on the
     current stream, and adds one to `planar_control_step.launches` (an
     empty batch launches nothing); it raises if the kernel cannot launch."""
-    if q.device.type == "cpu":
-        def fwd(q_, qd_, c_, f_, damped):
-            return _forward_math(pm, q_, qd_, c_, f_, iters,
-                                 pm.timestep if damped else None)
-        return _control_step(pm, fwd, q, qd, ctrl, f0)
-    stream = _cuda_stream(q)
-    _check_rows(pm, q, qd, ctrl, f0)
-    out = _kernel().launch(pm, q, qd, ctrl, f0, iters, True, False, stream)
-    if q.shape[1]:
-        planar_control_step.launches += 1
-    return out
+    with span("physics_planar.step"):
+        if q.device.type == "cpu":
+            def fwd(q_, qd_, c_, f_, damped):
+                return _forward_math(pm, q_, qd_, c_, f_, iters,
+                                     pm.timestep if damped else None)
+            return _control_step(pm, fwd, q, qd, ctrl, f0)
+        stream = _cuda_stream(q)
+        _check_rows(pm, q, qd, ctrl, f0)
+        out = _kernel().launch(pm, q, qd, ctrl, f0, iters, True, False,
+                               stream)
+        if q.shape[1]:
+            planar_control_step.launches += 1
+        return out
 
 
 planar_control_step.launches = 0

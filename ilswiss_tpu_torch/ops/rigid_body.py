@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ilswiss_tpu_torch.ops.pgs import pgs_solve
+from ilswiss_tpu_torch.utils.profiling import span
 
 
 class Joint:
@@ -809,26 +810,30 @@ def forward(m: RigidModel, q, qd, ctrl, iters: int = 40, f0=None,
     Gauss-Seidel solve: `pgs_solve` (kernel K4 on CUDA tensors) unless a
     caller names the plain version."""
     c = m.consts(q.dtype, q.device)
-    lin = _linearization(m, q)
-    M, Iw = _mass_from(m, lin, q.dtype)
-    L = torch.linalg.cholesky(M)
-    bias, vcom, omega = _bias_from(m, lin, Iw, q, qd)
-    qfrc = actuation(m, ctrl) - c.damping * qd - bias
-    if c.has_spring:
-        qfrc = qfrc - c.stiffness * (q[:, c.dof_qadr] - c.spring)
-    if m.has_fluid:
-        qfrc = qfrc + _fluid_from(m, lin, vcom, omega, qd)
-    qacc_smooth = _cho_solve(L, qfrc[:, :, None])[..., 0]
-    if m.nrow == 0:
-        return (qacc_smooth, qfrc, M, torch.zeros_like(qd),
-                q.new_zeros((q.shape[0], 0)))
-    J, aref, d, active = _rows_from(m, lin, q, qd)
-    if f0 is None:
-        f0 = q.new_zeros((q.shape[0], m.nrow))
-    qfrc_con, f = _solve_rows(m, L, J, aref, d, active, qacc_smooth, iters,
-                              f0, solve)
-    qfrc_total = qfrc + qfrc_con
-    qacc = _cho_solve(L, qfrc_total[:, :, None])[..., 0]
+    with span("physics_general.linearize"):
+        lin = _linearization(m, q)
+        M, Iw = _mass_from(m, lin, q.dtype)
+        L = torch.linalg.cholesky(M)
+    with span("physics_general.smooth"):
+        bias, vcom, omega = _bias_from(m, lin, Iw, q, qd)
+        qfrc = actuation(m, ctrl) - c.damping * qd - bias
+        if c.has_spring:
+            qfrc = qfrc - c.stiffness * (q[:, c.dof_qadr] - c.spring)
+        if m.has_fluid:
+            qfrc = qfrc + _fluid_from(m, lin, vcom, omega, qd)
+        qacc_smooth = _cho_solve(L, qfrc[:, :, None])[..., 0]
+        if m.nrow == 0:
+            return (qacc_smooth, qfrc, M, torch.zeros_like(qd),
+                    q.new_zeros((q.shape[0], 0)))
+    with span("physics_general.rows"):
+        J, aref, d, active = _rows_from(m, lin, q, qd)
+        if f0 is None:
+            f0 = q.new_zeros((q.shape[0], m.nrow))
+    with span("physics_general.solve"):
+        qfrc_con, f = _solve_rows(m, L, J, aref, d, active, qacc_smooth,
+                                  iters, f0, solve)
+        qfrc_total = qfrc + qfrc_con
+        qacc = _cho_solve(L, qfrc_total[:, :, None])[..., 0]
     return qacc, qfrc_total, M, qfrc_con, f
 
 
@@ -839,10 +844,12 @@ def _euler_step(m: RigidModel, q, qd, ctrl, h, iters, f0, solve):
     c = m.consts(q.dtype, q.device)
     _, qfrc_total, M, qfrc_con, f = forward(m, q, qd, ctrl, iters=iters,
                                             f0=f0, solve=solve)
-    Lh = torch.linalg.cholesky(M + h * c.damping_diag)
-    qacc = _cho_solve(Lh, qfrc_total[:, :, None])[..., 0]
-    qd_new = qd + h * qacc
-    return integrate_pos(m, q, qd_new, h), qd_new, qfrc_con, f, (q, qd)
+    with span("physics_general.integrate"):
+        Lh = torch.linalg.cholesky(M + h * c.damping_diag)
+        qacc = _cho_solve(Lh, qfrc_total[:, :, None])[..., 0]
+        qd_new = qd + h * qacc
+        q_new = integrate_pos(m, q, qd_new, h)
+    return q_new, qd_new, qfrc_con, f, (q, qd)
 
 
 # classic RK4 Butcher tableau, as mj_RungeKutta: stage positions integrate
@@ -858,18 +865,21 @@ def _rk4_step(m: RigidModel, q, qd, ctrl, h, iters, f0, solve):
     vels = [qd]
     accs = [qacc0]
     for i in range(3):
-        dq = sum(a * v for a, v in zip(_RK4_A[i], vels) if a != 0.0)
-        dv = sum(a * acc for a, acc in zip(_RK4_A[i], accs) if a != 0.0)
-        qi = integrate_pos(m, q, dq, h)
-        vi = qd + h * dv
+        with span("physics_general.integrate"):
+            dq = sum(a * v for a, v in zip(_RK4_A[i], vels) if a != 0.0)
+            dv = sum(a * acc for a, acc in zip(_RK4_A[i], accs) if a != 0.0)
+            qi = integrate_pos(m, q, dq, h)
+            vi = qd + h * dv
         qacci, _, _, _, f = forward(m, qi, vi, ctrl, iters=iters, f0=f,
                                     solve=solve)
         vels.append(vi)
         accs.append(qacci)
-    dq = sum(b * v for b, v in zip(_RK4_B, vels))
-    dv = sum(b * acc for b, acc in zip(_RK4_B, accs))
-    # the last forward evaluation ran at stage 3's state (qi, vi)
-    return integrate_pos(m, q, dq, h), qd + h * dv, con, f, (qi, vi)
+    with span("physics_general.integrate"):
+        dq = sum(b * v for b, v in zip(_RK4_B, vels))
+        dv = sum(b * acc for b, acc in zip(_RK4_B, accs))
+        # the last forward evaluation ran at stage 3's state (qi, vi)
+        q_new, qd_new = integrate_pos(m, q, dq, h), qd + h * dv
+    return q_new, qd_new, con, f, (qi, vi)
 
 
 def physics_step(m: RigidModel, q, qd, ctrl, iters: int = 40, f0=None,

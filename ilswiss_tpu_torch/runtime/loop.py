@@ -49,6 +49,7 @@ from ilswiss_tpu_torch.data.replay import (
 )
 from ilswiss_tpu_torch.envs.base import EnvState
 from ilswiss_tpu_torch.envs.vector import VectorEnv
+from ilswiss_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -254,27 +255,32 @@ class OffPolicyLoop:
     # ------------------------------------------------------------------
     def _collect_iter(self, runner: RunnerState, random_actions: bool
                       ) -> RunnerState:
-        noise, n, env = runner.noise, self.vec_env.num_envs, self.vec_env.env
-        if random_actions and env.discrete:
-            action = noise.warmup_index(n, env.action_size)
-        elif random_actions:
-            action = noise.warmup_action((n, env.action_size))
-        else:
-            action = self.algo.act(runner.algo_state, runner.env_state.obs,
-                                   *self.algo.act_noise(noise, n))
-        env_state, tr = self.vec_env.step(
-            runner.env_state, action, noise.reset(self.vec_env.env, n))
-        if self.config.no_terminal:
-            tr.terminal = torch.zeros_like(tr.terminal)
-        runner.replay = replay_add(runner.replay, tr)
-        runner.env_state = env_state
-        runner.total_env_steps += n
-        return runner
+        with span("loop.collect"):
+            noise, n, env = (runner.noise, self.vec_env.num_envs,
+                             self.vec_env.env)
+            if random_actions and env.discrete:
+                action = noise.warmup_index(n, env.action_size)
+            elif random_actions:
+                action = noise.warmup_action((n, env.action_size))
+            else:
+                with span("acting.act"):
+                    action = self.algo.act(runner.algo_state,
+                                           runner.env_state.obs,
+                                           *self.algo.act_noise(noise, n))
+            env_state, tr = self.vec_env.step(
+                runner.env_state, action, noise.reset(self.vec_env.env, n))
+            if self.config.no_terminal:
+                tr.terminal = torch.zeros_like(tr.terminal)
+            runner.replay = replay_add(runner.replay, tr)
+            runner.env_state = env_state
+            runner.total_env_steps += n
+            return runner
 
     def _train_iter(self, runner: RunnerState
                     ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
-        runner = self._collect_iter(runner, random_actions=False)
-        return self.learn(runner)
+        with span("loop.iter"):
+            runner = self._collect_iter(runner, random_actions=False)
+            return self.learn(runner)
 
     def learn(self, runner: RunnerState
               ) -> tuple[RunnerState, Dict[str, torch.Tensor]]:
@@ -297,14 +303,15 @@ class OffPolicyLoop:
             return runner, {k: v.mean() for k, v in metrics.items()}
         sums: Dict[str, torch.Tensor] = {}
         state = runner.algo_state
-        for _ in range(self.grad_steps_per_iter):
-            batch = self.sample_fn(runner.replay, runner.noise,
-                                   cfg.batch_size)
-            state, metrics = self.algo.train_step(
-                state, batch,
-                *self.algo.train_noise(runner.noise, cfg.batch_size))
-            for k, v in metrics.items():
-                sums[k] = v if k not in sums else sums[k] + v
+        with span("learner.steps"):
+            for _ in range(self.grad_steps_per_iter):
+                batch = self.sample_fn(runner.replay, runner.noise,
+                                       cfg.batch_size)
+                state, metrics = self.algo.train_step(
+                    state, batch,
+                    *self.algo.train_noise(runner.noise, cfg.batch_size))
+                for k, v in metrics.items():
+                    sums[k] = v if k not in sums else sums[k] + v
         if hasattr(self.algo, "note_env_steps"):
             self.algo.note_env_steps(state, self.vec_env.num_envs)
         runner.algo_state = state

@@ -12,13 +12,27 @@ same names show up on the timeline of a trace.
 CPU, and the card when there is one) and writes it into `log_dir` as a
 Chrome trace (`*.pt.trace.json`, readable in Perfetto or TensorBoard's
 profiler plugin); runners do this when the variant sets `profile_dir`.
+
+`span(name)` marks one layer boundary of the device loop (the names of
+`SPANS`).  While a profiler records, it is a range on the profiler's
+clock, to which the trace ties every device operation launched inside
+it (the ctypes launches of the kernels too); while none records, it is a
+shared no-op context, so the hot path pays one check of the profiler's
+state and never enters a profiler range, which costs microseconds a call
+even with no profiler.  The range is a plain host range
+(`_RecordFunctionFast`, an op of the trace's CPU timeline), not a
+user-scope `record_function`: the profiler mirrors a user-scope range on
+the device's timeline as an annotation over the kernels launched inside
+it, which a reader of the device's busy time would count as work.  The
+ranges stay in the profiler's memory until it stops: `trace` writes
+them, as does any caller that runs its own `torch.profiler.profile`.
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict
 
 import torch
@@ -32,7 +46,6 @@ class PhaseTimer:
 
     def reset(self) -> None:
         self._times: Dict[str, float] = defaultdict(float)
-        self._counts: Dict[str, int] = defaultdict(int)
         self._start = time.time()
 
     @contextmanager
@@ -43,7 +56,6 @@ class PhaseTimer:
                 yield
             finally:
                 self._times[name] += time.perf_counter() - t0
-                self._counts[name] += 1
 
     def stamp(self) -> Dict[str, float]:
         """Per-phase seconds since the last reset (+ 'total'), then
@@ -59,6 +71,32 @@ class PhaseTimer:
 TIMER = PhaseTimer()
 phase = TIMER.phase
 stamp = TIMER.stamp
+
+
+# every name `span` is given, by layer: the device loop, acting, the env
+# and its engines, the replay ring, the learner
+SPANS = (
+    "loop.iter", "loop.collect",
+    "acting.act",
+    "env.step", "env.physics", "env.reset", "env.observe",
+    "physics_planar.step",
+    "physics_general.linearize", "physics_general.smooth",
+    "physics_general.rows", "physics_general.solve",
+    "physics_general.integrate",
+    "replay.add", "replay.gather",
+    "learner.chain", "learner.draws", "learner.launch", "learner.steps",
+)
+
+_OFF = nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A host range named `name` (one of `SPANS`) while a profiler
+    records, else a shared no-op context."""
+    if _profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
 
 
 @contextmanager
