@@ -112,9 +112,17 @@ class Environment:
         """Policy actions in [-1, 1] to the Box bounds: lerp, then clip."""
         if self.discrete:
             return normalized
-        low = torch.as_tensor(self.action_low, dtype=torch.float32,
-                              device=normalized.device)
-        high = torch.as_tensor(self.action_high, dtype=torch.float32,
-                               device=normalized.device)
+        low, high = self._action_bounds(normalized.device)
         action = low + (normalized + 1.0) * 0.5 * (high - low)
         return torch.clamp(action, low, high)
+
+    def _action_bounds(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The Box bounds as float32 tensors on `device`, copied from the
+        host at the first call there: a copy from host memory to a CUDA
+        device waits for the device."""
+        bounds = getattr(self, "_bounds", None)
+        if bounds is None or bounds[0].device != device:
+            bounds = self._bounds = tuple(
+                torch.as_tensor(b, dtype=torch.float32, device=device)
+                for b in (self.action_low, self.action_high))
+        return bounds

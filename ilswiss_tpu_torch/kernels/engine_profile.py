@@ -21,6 +21,21 @@ violated, the rows K4 has to walk) for ant and humanoid at B = 128: at
 actions), as the mean over envs, the max over envs and the share of nr.
 It builds nothing; with `--device cpu` it runs on the CPU (for a small
 `--envs` and `--steps`).
+
+    python3 -m ilswiss_tpu_torch.kernels.engine_profile --graph
+
+compares one control step as `physics_step` runs it on the card, one CUDA
+graph replay, with the same step run eagerly (`rigid_body._eager_step`),
+for ant and humanoid at B = 128 and 1024, from `grounded_state`: the wall
+time (CUDA events) and the host time (until the calls return) a call, the
+seconds of the first call's capture and instantiation (the first call less
+one eager step), the bytes the graph holds (its memory pool and static
+inputs: reserved memory after the capture less before, each after
+`empty_cache`), the device operations of one replay (`torch.profiler`),
+the largest difference of the graphed step from the eager one, the host
+time of one call of each with 100 ms of other work queued ahead of it
+(as K2 is ahead of the env step in the off-policy loop), and the
+engine's failed factorizations (`rigid_body.factor_failures`).
 """
 
 from __future__ import annotations
@@ -28,23 +43,33 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 
-def _time_ms(fn, reps: int, warmup: int = 2) -> float:
+def _host_wall_ms(fn, reps: int, warmup: int = 2) -> tuple[float, float]:
+    """(host ms, wall ms) a call of `reps` calls back to back after
+    `warmup` calls: the host clock until the last call returns, CUDA
+    events until the device has finished."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host_s = time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return host_s * 1e3 / reps, start.elapsed_time(end) / reps
+
+
+def _time_ms(fn, reps: int, warmup: int = 2) -> float:
+    return _host_wall_ms(fn, reps, warmup)[1]
 
 
 def grounded_state(m, name: str, B: int, seed: int, device,
@@ -145,9 +170,81 @@ def print_census(envs: int, steps: int, device) -> None:
                   f"{max(s[1] for s in seq[1:])}")
 
 
+def _queue_ms(ms: float) -> None:
+    """Queues about `ms` of a spinning kernel on the current stream."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    torch.cuda._sleep(int(10 ** 7 * ms / start.elapsed_time(end)))
+
+
+def _host_ms_behind(fn, ms: float) -> float:
+    """Host ms until one call of `fn` returns with `ms` of other work
+    queued ahead of it on the stream, as K2 is ahead of the env step."""
+    _queue_ms(ms)
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def graph_report(dev, iters: int = 15) -> None:
+    """One control step graphed against eager; see the module's
+    docstring (`--graph`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ilswiss_tpu_torch.envs._locomotion_params import PARAMS
+    from ilswiss_tpu_torch.ops import pgs
+    from ilswiss_tpu_torch.ops import rigid_body as rb
+
+    for name in ("ant", "humanoid"):
+        for B in (128, 1024):
+            m = rb.RigidModel(PARAMS[name])           # no graph yet
+            q, qd, ctrl, f0 = grounded_state(m, name, B, 0, dev)
+            eager = lambda: rb._eager_step(m, q, qd, ctrl, iters, f0,
+                                           pgs.pgs_solve)
+            graphed = lambda: rb.physics_step(m, q, qd, ctrl, iters, f0)
+            eager_host, eager_wall = _host_wall_ms(eager, 5, 1)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            graphed()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_reserved(dev) - reserved
+            graph_host, graph_wall = _host_wall_ms(graphed, 5, 1)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                graphed()
+                torch.cuda.synchronize()
+            ops = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+            behind = (_host_ms_behind(graphed, 100.0),
+                      _host_ms_behind(eager, 100.0))
+            got, want = graphed(), eager()
+            diff = max(float((g - w).abs().max()) for g, w in zip(
+                got[:4] + got[4], want[:4] + want[4]) if w.numel())
+            print(f"{name}, B = {B}: eager {eager_wall:.3f} ms wall, "
+                  f"{eager_host:.3f} ms host a step; graphed "
+                  f"{graph_wall:.3f} ms wall, {graph_host:.3f} ms host; "
+                  f"capture and instantiation {first_s - eager_wall / 1e3:.3f}"
+                  f" s (first call {first_s:.3f} s); the graph holds {held} B;"
+                  f" one replay {ops} device operations; largest |graphed -"
+                  f" eager| {diff:.3g}; host ms a call behind 100 ms of "
+                  f"queued work: graphed {behind[0]:.3f}, eager "
+                  f"{behind[1]:.3f}")
+    print(f"failed factorizations on {dev}: {rb.factor_failures(dev)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--active", action="store_true")
+    ap.add_argument("--graph", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--envs", type=int, default=128)
     ap.add_argument("--steps", type=int, default=39)
@@ -175,6 +272,9 @@ def main() -> int:
         return 0
     build.build_all(("pgs",))
     dev, B, iters = torch.device("cuda"), 128, 15
+    if opts.graph:
+        graph_report(dev, iters)
+        return 0
 
     for name in ("ant", "humanoid"):
         m = _model(name)
@@ -197,7 +297,8 @@ def main() -> int:
 
         lin = rb._linearization(m, q)
         M, Iw = rb._mass_from(m, lin, q.dtype)
-        L = torch.linalg.cholesky(M)
+        c = m.consts(q.dtype, dev)
+        L = rb._factor(c, M)
         J, aref, d, active = rb._rows_from(m, lin, q, qd)
         Jt = J.transpose(1, 2)
         pieces = {
@@ -206,7 +307,7 @@ def main() -> int:
             "mass matrix": lambda: rb._mass_from(m, lin, q.dtype),
             "bias": lambda: rb._bias_from(m, lin, Iw, q, qd),
             "rows": lambda: rb._rows_from(m, lin, q, qd),
-            "cholesky": lambda: torch.linalg.cholesky(M),
+            "cholesky": lambda: rb._factor(c, M),
             "W, two triangular solves": lambda: rb._cho_solve(L, Jt),
             "W, cholesky_solve": lambda: torch.cholesky_solve(Jt, L),
         }

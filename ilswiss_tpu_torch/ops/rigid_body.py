@@ -29,6 +29,13 @@ The Cholesky factor, W = M^-1 J^T and the row set-up are PyTorch calls; the
 projected Gauss-Seidel sweeps go through `ops/pgs.py` (kernel K4 on a CUDA
 tensor).  Planar models step through ops/planar_dynamics.py instead.
 
+On a CUDA device, in float32, `physics_step` runs a whole control step as
+one CUDA graph replay: the first call at a batch size captures it, every
+later call copies its inputs in and replays (see `physics_step`).  Nothing
+in the step waits for the device: the mass matrix is factored without the
+library's host check of the factorization, and failures are counted on
+the device instead (`factor_failures`).
+
 The stand-alone functions `kinetic_energy`, `potential_energy`,
 `body_jacobians`, `mass_matrix`, `bias_forces`, `fluid_forces`,
 `passive_forces`, `contact_gaps`, `constraint_forces` and `smooth_force`
@@ -196,6 +203,8 @@ class RigidModel:
             self.fluid_box[self.body_mass <= 0] = 0.0
         self.has_fluid = (self.density != 0.0) or (self.viscosity != 0.0)
         self._consts: dict = {}
+        # (batch, iters, device) -> _StepGraph, made by `physics_step`
+        self._graphs: dict = {}
 
     def consts(self, dtype: torch.dtype, device) -> "_Consts":
         key = (dtype, torch.device(device))
@@ -203,6 +212,22 @@ class RigidModel:
             self._consts[key] = _Consts(self, dtype, key[1])
         return self._consts[key]
 
+
+
+# failed factorizations of the mass matrix, per device: an int64 tensor on
+# that device, added to by `_factor` without a host sync
+_FACTOR_FAILURES: dict = {}
+
+
+def factor_failures(device) -> int:
+    """How many of the engine's mass-matrix factorizations on `device`
+    have failed (a matrix that is not positive definite) in this process.
+    Reading it waits for the device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    count = _FACTOR_FAILURES.get(device)
+    return 0 if count is None else int(count)
 
 
 def _impedance(solimp, pos: torch.Tensor) -> torch.Tensor:
@@ -412,6 +437,10 @@ class _Consts:
         self.row_diag = T(m.row_diag)
 
         self.fluid_box = T(m.fluid_box)
+        self.wind = T(m.wind)
+        # made here, outside any capture, so that a graph adds to it
+        zero = torch.zeros((), dtype=torch.int64, device=device)
+        self.failed_factors = _FACTOR_FAILURES.setdefault(zero.device, zero)
 
 
 def _impedance_rows(c: _Consts, pos: torch.Tensor) -> torch.Tensor:
@@ -720,10 +749,9 @@ def _fluid_from(m: RigidModel, lin, vcom, omega, qd):
     R = lin["R"]
     c = m.consts(R.dtype, R.device)
     Ri = torch.matmul(R, c.imat)
-    wind = torch.as_tensor(m.wind, dtype=R.dtype, device=R.device)
     to_local = lambda v: torch.matmul(Ri.transpose(-1, -2), v[..., None])[..., 0]
     lvel_ang = to_local(omega)
-    lvel_lin = to_local(vcom - wind)
+    lvel_lin = to_local(vcom - c.wind)
     box = c.fluid_box
     lfrc_t = torch.zeros_like(lvel_ang)
     lfrc_f = torch.zeros_like(lvel_lin)
@@ -780,6 +808,16 @@ def _rows_from(m: RigidModel, lin, q, qd):
     return J, aref, d, pos < 0.0
 
 
+def _factor(c: _Consts, M):
+    """The lower Cholesky factor of M [B, n, n].  The library's
+    `cholesky` reads the factorization's `info` on the host, which waits
+    for the device; here `info` stays on the device, and the count of
+    failed factorizations is added to `c.failed_factors`."""
+    L, info = torch.linalg.cholesky_ex(M)
+    c.failed_factors.add_(torch.count_nonzero(info))
+    return L
+
+
 def _cho_solve(L, rhs):
     """M^-1 rhs from the lower Cholesky factor L, rhs [B, nv, k]: two
     batched triangular solves, each one launch on the card (the library's
@@ -813,7 +851,7 @@ def forward(m: RigidModel, q, qd, ctrl, iters: int = 40, f0=None,
     with span("physics_general.linearize"):
         lin = _linearization(m, q)
         M, Iw = _mass_from(m, lin, q.dtype)
-        L = torch.linalg.cholesky(M)
+        L = _factor(c, M)
     with span("physics_general.smooth"):
         bias, vcom, omega = _bias_from(m, lin, Iw, q, qd)
         qfrc = actuation(m, ctrl) - c.damping * qd - bias
@@ -845,7 +883,7 @@ def _euler_step(m: RigidModel, q, qd, ctrl, h, iters, f0, solve):
     _, qfrc_total, M, qfrc_con, f = forward(m, q, qd, ctrl, iters=iters,
                                             f0=f0, solve=solve)
     with span("physics_general.integrate"):
-        Lh = torch.linalg.cholesky(M + h * c.damping_diag)
+        Lh = _factor(c, M + h * c.damping_diag)
         qacc = _cho_solve(Lh, qfrc_total[:, :, None])[..., 0]
         qd_new = qd + h * qacc
         q_new = integrate_pos(m, q, qd_new, h)
@@ -893,15 +931,117 @@ def physics_step(m: RigidModel, q, qd, ctrl, iters: int = 40, f0=None,
     That fifth value (pre-integration for Euler, RK4 stage 3 otherwise) is
     where gym's observation-side derived quantities (cvel, cinert,
     cfrc_ext) are read, one evaluation behind qpos and qvel; pair it with
-    the returned row forces when recomposing cfrc_ext."""
-    stepper = _euler_step if m.integrator == "euler" else _rk4_step
+    the returned row forces when recomposing cfrc_ext.
+
+    CUDA float32 inputs with kernel K4 as the solve take one CUDA graph of
+    the whole step, one per (batch, iters, device) of the model: the first
+    call runs the step eagerly on a side stream and captures it there
+    (`physics_step.graph_captures`), each later call copies its inputs into
+    the graph's, replays it and returns copies of its outputs
+    (`.graph_replays`; `pgs_solve.launches` grows by the graph's K4
+    launches).  Every other call runs eagerly: on the CPU, in float64, with
+    another solve, with inputs that need gradients, or inside a capture of
+    the caller's own (a CUDA call counted in `.eager_calls`)."""
     if f0 is None:
         f0 = q.new_zeros((q.shape[0], m.nrow))
+    if q.is_cuda:
+        if _graphable(q, qd, ctrl, f0, solve):
+            return _graphed_step(m, q, qd, ctrl, iters, f0)
+        physics_step.eager_calls += 1
+    return _eager_step(m, q, qd, ctrl, iters, f0, solve)
+
+
+physics_step.graph_captures = 0
+physics_step.graph_replays = 0
+physics_step.eager_calls = 0
+
+
+def _eager_step(m: RigidModel, q, qd, ctrl, iters, f0, solve):
+    stepper = _euler_step if m.integrator == "euler" else _rk4_step
     carry = (q, qd, torch.zeros_like(qd), f0, (q, qd))
     for _ in range(m.frame_skip):
         q_, qd_, _, f_, _ = carry
         carry = stepper(m, q_, qd_, ctrl, m.timestep, iters, f_, solve)
     return carry
+
+
+def _graphable(q, qd, ctrl, f0, solve) -> bool:
+    """Whether `physics_step` may run these CUDA inputs as a graph."""
+    args = (q, qd, ctrl, f0)
+    return (solve is pgs_solve and q.shape[0] > 0
+            and all(t.dtype == torch.float32 and t.device == q.device
+                    and not t.requires_grad for t in args)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _graphed_step(m: RigidModel, q, qd, ctrl, iters, f0):
+    key = (q.shape[0], iters, q.device)
+    graph = m._graphs.get(key)
+    if graph is None:
+        out, m._graphs[key] = _StepGraph.capture(m, q, qd, ctrl, iters, f0)
+        physics_step.graph_captures += 1
+        return out
+    with span("physics_general.graph"):
+        out = graph.replay(q, qd, ctrl, f0)
+    physics_step.graph_replays += 1
+    pgs_solve.launches += graph.k4_launches
+    return out
+
+
+def _tensors(out):
+    """The six tensors of a `physics_step` result, flat."""
+    q, qd, con, f, (q_ev, qd_ev) = out
+    return q, qd, con, f, q_ev, qd_ev
+
+
+class _StepGraph:
+    """One control step of one model at one batch size and `iters`,
+    captured as a CUDA graph over static input and output tensors."""
+
+    _side_streams: dict = {}
+
+    def __init__(self, graph, inputs, outputs, k4_launches: int):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.k4_launches = k4_launches
+
+    @classmethod
+    def capture(cls, m: RigidModel, q, qd, ctrl, iters, f0):
+        """(the step's outputs, the graph): the step runs eagerly on a side
+        stream, as the capture's warm-up, and is then captured on that
+        stream over copies of the inputs.  The capture launches nothing, so
+        the K4 launches it records are taken off `pgs_solve.launches`
+        again and added back at each replay."""
+        here = torch.cuda.current_stream(q.device)
+        side = cls._side_streams.get(q.device)
+        if side is None:
+            side = cls._side_streams[q.device] = torch.cuda.Stream(q.device)
+        inputs = tuple(t.clone() for t in (q, qd, ctrl, f0))
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = _eager_step(m, q, qd, ctrl, iters, f0, pgs_solve)
+        for t in _tensors(out):
+            t.record_stream(here)
+        here.wait_stream(side)
+        launches = pgs_solve.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            outputs = _tensors(_eager_step(m, *inputs[:3], iters, inputs[3],
+                                           pgs_solve))
+        k4_launches = pgs_solve.launches - launches
+        pgs_solve.launches = launches
+        return out, cls(graph, inputs, outputs, k4_launches)
+
+    def replay(self, q, qd, ctrl, f0):
+        """The step from these inputs: copied in, replayed on the current
+        stream, the outputs copied out (the next replay overwrites the
+        graph's own)."""
+        for static, t in zip(self.inputs, (q, qd, ctrl, f0)):
+            static.copy_(t)
+        self.graph.replay()
+        q, qd, con, f, q_ev, qd_ev = (t.clone() for t in self.outputs)
+        return q, qd, con, f, (q_ev, qd_ev)
 
 
 # --------------------------------------------------------------------------

@@ -82,7 +82,7 @@ SPANS = (
     "physics_planar.step",
     "physics_general.linearize", "physics_general.smooth",
     "physics_general.rows", "physics_general.solve",
-    "physics_general.integrate",
+    "physics_general.integrate", "physics_general.graph",
     "replay.add", "replay.gather",
     "learner.chain", "learner.draws", "learner.launch", "learner.steps",
 )

@@ -27,7 +27,9 @@ import pytest
 import torch
 
 from ilswiss_tpu_torch.algorithms.sac import SAC, SACConfig
+from ilswiss_tpu_torch.envs._locomotion_params import PARAMS
 from ilswiss_tpu_torch.envs.locomotion import _model
+from ilswiss_tpu_torch.kernels.engine_profile import grounded_state
 from ilswiss_tpu_torch.models.policies import TanhGaussianPolicy
 from ilswiss_tpu_torch.ops import fused_mlp, fused_sac, pgs
 from ilswiss_tpu_torch.ops import planar_dynamics as pd
@@ -458,6 +460,74 @@ def test_engine_with_kernel_matches_plain_solve(name, cuda):
         scale = max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g / scale, w / scale, rtol=2e-4,
                                    atol=5e-3)
+
+
+def _graph_counts():
+    s = rb.physics_step
+    return s.graph_captures, s.graph_replays, s.eager_calls
+
+
+def _step_outputs(out):
+    q, qd, con, f, (q_ev, qd_ev) = out
+    return q, qd, con, f, q_ev, qd_ev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B", [("ant", 64), ("humanoid", 64),
+                                    ("swimmer", 64), ("ant", 1)])
+def test_graphed_step_matches_eager(name, B, cuda):
+    """The control step as one CUDA graph against the same step run
+    eagerly from the same inputs, over five consecutive steps that carry
+    the state and the warm start: every output within 1e-6 after dividing
+    by max(1, max |eager|); the outputs kept from one step are unchanged by
+    the next; one capture, then one replay a step, each adding the step's
+    K4 launches to `pgs_solve.launches` (20 on ant)."""
+    m = rb.RigidModel(PARAMS[name])          # no graph captured yet
+    q, qd, ctrl, f0 = grounded_state(m, name, B, 5, cuda)
+    evaluations = m.frame_skip * (1 if m.integrator == "euler" else 4)
+    start, kept = _graph_counts(), None
+    for _ in range(5):
+        before = pgs.pgs_solve.launches
+        got = rb.physics_step(m, q, qd, ctrl, iters=15, f0=f0)
+        assert pgs.pgs_solve.launches == before + evaluations
+        want = rb._eager_step(m, q, qd, ctrl, 15, f0, pgs.pgs_solve)
+        torch.cuda.synchronize()
+        if kept is not None:
+            for k, snapshot in zip(*kept):
+                assert torch.equal(k, snapshot)
+        for g, w in zip(_step_outputs(got), _step_outputs(want)):
+            scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+            torch.testing.assert_close(g / scale, w / scale, rtol=1e-6,
+                                       atol=1e-6)
+        kept = (_step_outputs(got),
+                [t.clone() for t in _step_outputs(got)])
+        q, qd, f0 = got[0], got[1], got[3]
+    assert _graph_counts() == (start[0] + 1, start[1] + 4, start[2])
+    assert list(m._graphs) == [(B, 15, q.device)]
+
+
+@pytest.mark.gpu
+def test_step_inside_a_capture_runs_eager(cuda):
+    """A caller capturing a graph of its own gets the eager step inside
+    it: the engine captures and replays nothing and counts one eager call,
+    and a replay of the caller's graph gives the eager step's outputs."""
+    m = rb.RigidModel(PARAMS["ant"])
+    q, qd, ctrl, f0 = grounded_state(m, "ant", 16, 6, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # the capture's warm-up
+        want = rb._eager_step(m, q, qd, ctrl, 15, f0, pgs.pgs_solve)
+    torch.cuda.synchronize()
+    start = _graph_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = rb.physics_step(m, q, qd, ctrl, iters=15, f0=f0)
+    assert _graph_counts() == (start[0], start[1], start[2] + 1)
+    assert not m._graphs
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(_step_outputs(got), _step_outputs(want)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -271,6 +271,24 @@ def test_physics_step_auto_takes_either_route():
             assert torch.equal(g, w)
 
 
+def test_factor_counts_failed_factorizations():
+    """`_factor` keeps the factorization's `info` on the device: a planted
+    mass matrix that is not positive definite is counted in
+    `factor_failures`, not raised, and the others are factored as the
+    library's `cholesky` factors them."""
+    c = _model("ant").consts(torch.float64, "cpu")
+    rng = np.random.RandomState(8)
+    S = rng.randn(3, 5, 5)
+    M = torch.as_tensor(S @ S.transpose(0, 2, 1) + np.eye(5))
+    M[1] = -M[1]
+    before = rb.factor_failures("cpu")
+    L = rb._factor(c, M)
+    assert rb.factor_failures("cpu") == before + 1
+    assert torch.equal(L[[0, 2]], torch.linalg.cholesky(M[[0, 2]]))
+    with pytest.raises(torch.linalg.LinAlgError):
+        torch.linalg.cholesky(M)
+
+
 def test_quaternion_helpers_match_jax():
     rng = np.random.RandomState(5)
     a, b = rng.randn(4, 4), rng.randn(4, 4)

@@ -108,6 +108,15 @@ def test_eager_steps_span():
     assert counts["replay.gather"] == 2     # one batch a gradient step
 
 
+def test_engine_spans_match_spans():
+    """The general engine opens the five spans of its eager step and
+    `physics_general.graph` around a graph's replay, each one of `SPANS`."""
+    text = (PACKAGE / "ops" / "rigid_body.py").read_text()
+    opened = set(re.findall(r"\bspan\(\"([^\"]+)\"\)", text))
+    assert opened == set(GENERAL) | {"physics_general.graph"}
+    assert opened <= set(profiling.SPANS)
+
+
 def test_spans_names_every_span_the_program_opens():
     opened = set()
     for path in PACKAGE.rglob("*.py"):
